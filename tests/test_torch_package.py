@@ -1,0 +1,84 @@
+"""Rules of the port package itself.
+
+* ``ray_tpu_torch`` and ``chip_smoke.py`` import neither jax nor the
+  JAX package (the port keeps its own copy of what it needs).
+* Entry points run on CUDA unless the caller asks for the CPU: without
+  CUDA, ``device=None`` raises instead of carrying on on the CPU.
+* The CUDA kernels build from source with nvcc and have no fallback: no
+  nvcc, or a failed compile, raises with the compiler's output.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import ray_tpu_torch
+from ray_tpu_torch._private import kernels
+from ray_tpu_torch._private.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "ray_tpu_torch"
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_ray_tpu():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(f.relative_to(REPO).as_posix(), mod) for f in files
+           for mod in _imported_roots(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "ray_tpu")]
+    assert bad == []
+
+
+def test_resolve_device_refuses_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ray_tpu_torch.entry()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.fixture
+def build_dir(tmp_path, monkeypatch):
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    return tmp_path
+
+
+def test_build_without_nvcc_raises(build_dir, monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(build_dir))
+    monkeypatch.setattr(kernels, "DEFAULT_CUDA_HOME", build_dir / "none")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.library("flash_fwd")
+    assert not (build_dir / "build").exists()
+
+
+def test_failed_compile_raises_with_compiler_output(build_dir, monkeypatch):
+    bindir = build_dir / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    nvcc = bindir / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'flash_fwd.cu(1): error: no card'\n"
+                    "exit 2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(build_dir / "cuda"))
+    with pytest.raises(RuntimeError, match="no card"):
+        kernels.build()
+    assert list((build_dir / "build").iterdir()) == []
+
+
+def test_library_name_tracks_sources():
+    path = kernels.library_path("flash_fwd")
+    assert path.parent == kernels.BUILD_DIR
+    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
+    assert kernels.kernel_names() == ["flash_fwd"]
