@@ -12,10 +12,10 @@ Phases, one JSON line each, in order:
    checkout (one nvcc per source, all at once) and reports the seconds.
 3. ``kernel``: K1 (``csrc/flash_fwd.cu``) against its plain version
    ``flash_attention_reference`` on the card, O and lse, at the serving
-   prefill shape and around it; kernel, plain and
-   ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it) timed with CUDA events beside the least time the card
-   could take.
+   prefill shape and around it; kernel and plain timed with CUDA
+   events, ``scaled_dot_product_attention`` (a yardstick only; the port
+   never calls it) by its kernels' device time in a profiler window, all
+   beside the least time the card could take.
 4. ``serve``: the full-width decoder (vocab 32768, d_model 1024, 16
    heads, 8 layers, d_ff 4096, bf16; depth as in the model bench) behind
    ``DecodeScheduler`` + ``TorchSlotEngine`` (16 slots, max_len 1024)
@@ -25,6 +25,23 @@ Phases, one JSON line each, in order:
    through the slot engine (a slot freed and reused mid-flight) equal
    the whole-batch ``generate`` exactly, and each first token equals
    the argmax of ``forward`` on the prompt.
+6. ``kernel_bwd``: K2 and K3 (``csrc/flash_bwd.cu``) through their
+   wrappers against ``flash_backward_reference`` on the card, with O and
+   lse from K1, at the training shape and around it (ragged T,
+   non-causal, head_dim 128), bf16 held to two ulps; each kernel and its
+   plain version timed with CUDA events, the backward of
+   ``scaled_dot_product_attention`` (a yardstick only) by its kernels'
+   device time, beside the least time the card could take.
+7. ``train``: the serve phase's widths, bf16, 8 layers, batch 16 x 1024
+   tokens, remat "full", through ``make_train_step``: one warm-up step,
+   then timed steps with the kernels' launch counts reset just before
+   and read just after (K1 twice per layer and step, K2 and K3 once);
+   step time, tokens/s, TFLOP/s, peak memory, and a loss that falls.
+   Then a ``profile`` line over one step.
+8. ``train_exact``: fp32, the same widths at 2 layers, one ragged
+   sequence of 300 tokens: ``loss_fn``'s value and every gradient leaf
+   on the card (K1-K3) against the same call on the CPU (plain
+   versions), relative to each leaf's largest magnitude.
 
 Then the ``kernels`` line, the ``nvidia-smi`` card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without
@@ -45,11 +62,17 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private import kernels
 from ray_tpu_torch.models import decode
-from ray_tpu_torch.models.transformer import (TransformerConfig, forward,
-                                              init_params)
+from ray_tpu_torch.models.transformer import (ParallelConfig,
+                                              TransformerConfig, forward,
+                                              init_params, loss_fn,
+                                              make_train_step, param_leaves)
 from ray_tpu_torch.ops.attention import (flash_attention,
                                          flash_attention_reference,
-                                         flash_forward)
+                                         flash_backward_reference,
+                                         flash_bwd_dkv,
+                                         flash_bwd_dkv_reference,
+                                         flash_bwd_dq, flash_bwd_dq_reference,
+                                         flash_delta, flash_forward)
 from ray_tpu_torch.serve.decode_scheduler import (DecodeScheduler,
                                                   TorchSlotEngine)
 
@@ -62,8 +85,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # only in summation order; bf16 O may round one ulp apart.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
 PREFILL_CASE = (1, 512, 16, 64, torch.bfloat16, True)
+TRAIN_CASE = (16, 1024, 16, 64, torch.bfloat16, True)
 KERNEL_CASES = [
     PREFILL_CASE,
+    TRAIN_CASE,
     (1, 512, 16, 64, torch.float32, True),
     (16, 512, 16, 64, torch.bfloat16, True),
     (16, 512, 16, 64, torch.float32, True),
@@ -75,6 +100,29 @@ KERNEL_CASES = [
 ]
 SERVE_WIDTHS = dict(vocab=32768, d_model=1024, n_heads=16, d_ff=4096,
                     max_seq=1024)
+# dQ, dK, dV tolerances (atol, rtol) of K2/K3 against their plain
+# version. fp32: that of tests/test_ops.py for the Pallas backward (the
+# sums differ only in order). bf16: both sides round fp32 sums that
+# differ as little, so they may land one bf16 ulp apart, at most 2^-7 of
+# the value; rtol allows two ulps and atol values near 0. A kernel that
+# drops a tile moves dQ, dK, dV (~0.05 at the training shape) far past
+# it (bwd_fault_check.py plants such faults).
+BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-4, 2.0 ** -6)}
+BWD_CASES = [
+    TRAIN_CASE,
+    (1, 512, 16, 64, torch.float32, True),
+    (1, 300, 16, 64, torch.float32, True),     # ragged tail of T
+    (1, 300, 16, 64, torch.bfloat16, True),
+    (1, 512, 16, 64, torch.bfloat16, False),
+    (2, 256, 8, 128, torch.float32, True),     # head_dim 128
+    (2, 256, 8, 128, torch.bfloat16, True),
+]
+# The trainer benchmark's baseline point (ray_tpu/models/bench_model.py:
+# the widths above, 8 layers, batch 16 x 1024 tokens, remat "full").
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 16, 1024, 6
+# train_exact: whole-model fp32 tolerance, relative to each leaf's
+# largest magnitude.
+EXACT_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -121,15 +169,62 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_bound(B, T, H, D, dtype, causal):
-    """Least time for K1's work: 2 matmuls of 2 flops per (q, k) pair the
-    mask keeps, against q, k, v read once and O, lse written once."""
-    pairs = T * (T + 1) // 2 if causal else T * T
-    flops = 4 * B * H * D * pairs
-    nbytes = 4 * B * T * H * D * torch.finfo(dtype).bits // 8 + B * H * T * 4
+def _device_events(prof):
+    """Device-side events of a profile (a CPU op's entry would repeat
+    its kernels' time)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn``: the summed time of the kernels
+    it launches over ``iters`` calls in a profiler window (after a
+    warm-up call), per call. For a library call whose host work outlasts
+    its kernels, where CUDA events around the calls would time the
+    host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in _device_events(prof)) / 1e3 / iters
+
+
+def _bound(flops, nbytes, dtype):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
+
+
+def _pairs(T, causal):
+    """(q, k) pairs the mask keeps, per head."""
+    return T * (T + 1) // 2 if causal else T * T
+
+
+def k1_bound(B, T, H, D, dtype, causal):
+    """Least time for K1's work: 2 matmuls of 2 flops per (q, k) pair the
+    mask keeps, against q, k, v read once and O, lse written once."""
+    flops = 4 * B * H * D * _pairs(T, causal)
+    nbytes = 4 * B * T * H * D * torch.finfo(dtype).bits // 8 + B * H * T * 4
+    return _bound(flops, nbytes, dtype)
+
+
+def bwd_bound(B, T, H, D, dtype, causal, kernel):
+    """Least time for K2's (``"dkv"``: s, dp, dV, dK) or K3's (``"dq"``:
+    s, dp, dQ) work: 2 flops per (q, k) pair the mask keeps and head_dim
+    element of each matmul, against q, k, v, dO, lse and delta read once
+    and the outputs (dK, dV or dQ) written once."""
+    mats, tensors = (4, 6) if kernel == "dkv" else (3, 5)
+    flops = 2 * mats * B * H * D * _pairs(T, causal)
+    nbytes = (tensors * B * T * H * D * torch.finfo(dtype).bits // 8
+              + 2 * B * H * T * 4)
+    return _bound(flops, nbytes, dtype)
 
 
 def phase_kernel() -> dict:
@@ -149,7 +244,7 @@ def phase_kernel() -> dict:
                              rtol=tol_o)
               and torch.allclose(lse, ref_lse, atol=tol_lse, rtol=tol_lse))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        iters = 20 if B * T * H > 2 ** 15 else 100
+        iters = _iters(B, T, H)
         bound_ms, bound_by = k1_bound(*case)
         row = {"phase": "kernel", "shape": [B, T, H, D],
                "dtype": str(dtype).removeprefix("torch."), "causal": causal,
@@ -159,8 +254,11 @@ def phase_kernel() -> dict:
                              iters),
                "plain_ms": time_ms(lambda: flash_attention_reference(
                    q, k, v, causal=causal), iters),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal), iters),
+               "library_event_ms": time_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=causal), iters),
                "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
         rows[case] = row
@@ -170,6 +268,78 @@ def phase_kernel() -> dict:
         raise AssertionError(f"K1 disagrees with its plain version at "
                              f"{failures}")
     return rows[PREFILL_CASE]
+
+
+def _iters(B, T, H):
+    return 10 if B * T * H > 2 ** 17 else 20 if B * T * H > 2 ** 15 else 100
+
+
+def phase_kernel_bwd() -> dict:
+    """K2 and K3 against their plain version, per case; returns the
+    training shape's row."""
+    rows, failures = {}, []
+    for i, case in enumerate(BWD_CASES):
+        B, T, H, D, dtype, causal = case
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 100 + i)
+        q, k, v, do = (torch.randn((B, T, H, D), generator=gen,
+                                   device=DEVICE).to(dtype)
+                       for _ in range(4))
+        out, lse = flash_forward(q, k, v, causal=causal)
+        delta = flash_delta(out, do)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+        refs = flash_backward_reference(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        atol, rtol = BWD_TOL[dtype]
+        errs, shares = {}, {}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            diff = (got.float() - ref.float()).abs()
+            errs[name] = float(diff.max())
+            # the worst element's error over its allowance; > 1 fails
+            shares[name] = float((diff / (atol + rtol * ref.float().abs()))
+                                 .max())
+        ok = max(shares.values()) <= 1.0
+        del refs
+        # the library's backward of the same attention, on a graph kept
+        # for repeated calls: a yardstick only, the port never calls it
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2)
+
+        def lib_bwd():
+            torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True)
+
+        iters = _iters(B, T, H)
+        plain_iters = max(2, iters // 10)
+        kw = dict(causal=causal)
+        row = {"phase": "kernel_bwd", "shape": [B, T, H, D],
+               "dtype": str(dtype).removeprefix("torch."), "causal": causal,
+               "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+               "tol": [atol, rtol], "tol_share_by": shares, "ok": ok,
+               "dkv_ms": time_ms(lambda: flash_bwd_dkv(
+                   q, k, v, do, lse, delta, **kw), iters),
+               "dq_ms": time_ms(lambda: flash_bwd_dq(
+                   q, k, v, do, lse, delta, **kw), iters),
+               "dkv_plain_ms": time_ms(lambda: flash_bwd_dkv_reference(
+                   q, k, v, do, lse, delta, **kw), plain_iters),
+               "dq_plain_ms": time_ms(lambda: flash_bwd_dq_reference(
+                   q, k, v, do, lse, delta, **kw), plain_iters),
+               "library_bwd_ms": device_ms(lib_bwd, iters),
+               "library_bwd_event_ms": time_ms(lib_bwd, iters)}
+        for kernel in ("dkv", "dq"):
+            row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = bwd_bound(
+                *case, kernel)
+        row["k1_bound_ms"] = k1_bound(*case)[0]
+        emit(row)
+        rows[case] = row
+        if not ok:
+            failures.append(case)
+        del o_lib, qt, kt, vt
+    if failures:
+        raise AssertionError(f"K2/K3 disagree with their plain version at "
+                             f"{failures}")
+    return rows[TRAIN_CASE]
 
 
 class TimedEngine:
@@ -256,9 +426,24 @@ def phase_serve() -> int:
     return launches
 
 
+# Kernel classes of a profile window: the port's own kernels, the
+# library's matrix products (cuBLAS names), and everything else
+# (elementwise, casts, copies, reductions, the optimizer).
+_MATMUL_NAMES = ("nvjet", "gemm", "gemv", "cutlass", "xmma")
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_" in name:
+        return "port_kernels"
+    if any(t in name for t in _MATMUL_NAMES):
+        return "matmul"
+    return "other"
+
+
 def _profile(fn, label: str) -> None:
     """Device time by kernel over one call of ``fn`` (after a warm-up
-    call): wall, summed kernel time and the device's idle share."""
+    call): wall, summed kernel time, its split by kernel class and the
+    device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -269,15 +454,17 @@ def _profile(fn, label: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op's entry repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = _device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    by_class = {}
+    for e in events:
+        cls = _kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
     emit({"phase": "profile", "window": label, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+          "device_ms_by_class": by_class,
           "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
                   for e in top]})
 
@@ -314,6 +501,123 @@ def phase_exact() -> None:
           "match": True})
 
 
+def _launch_counts() -> dict:
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches}
+
+
+def _reset_launch_counts() -> None:
+    flash_attention.launches = 0
+    flash_bwd_dkv.launches = 0
+    flash_bwd_dq.launches = 0
+
+
+def _train_batch(vocab, B, T, device, gen):
+    seq = torch.randint(0, vocab, (B, T + 1), generator=gen, device=device)
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+
+def phase_train() -> dict:
+    """The full-width train step; returns the launches of its timed
+    steps by kernel."""
+    cfg = TransformerConfig(n_layers=TRAIN_LAYERS, dtype=torch.bfloat16,
+                            **SERVE_WIDTHS)
+    pcfg = ParallelConfig(remat=True, remat_policy="full")
+    B, T, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    params = init_params(cfg, seed=SEED, device=DEVICE)
+    batch = _train_batch(cfg.vocab, B, T, DEVICE,
+                         torch.Generator(device=DEVICE).manual_seed(SEED))
+    step, optimizer = make_train_step(cfg, pcfg)
+    opt_state = optimizer.init(params)
+    n_params = sum(p.numel() for p in param_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    # warm-up: cuBLAS handles, the optimizer's state, the first launches
+    params, opt_state, loss0 = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+
+    _reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = _launch_counts()
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS,   # forward + remat recompute
+            "flash_bwd_dkv": L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS}
+    assert launches == want, (launches, want)
+    first, last = loss0.item(), losses[-1].item()
+    assert np.isfinite(first) and np.isfinite(last), (first, last)
+    assert last < first, (first, last)
+    # bench_model.py's accounting: 6 N per token, plus the causal
+    # attention matmuls (forward and backward)
+    flops = (6.0 * n_params * B * T
+             + 12.0 * L * B * cfg.n_heads * T * T * cfg.head_dim / 2.0)
+    step_ms = float(np.median(step_s)) * 1e3
+    tflops = flops / (step_ms / 1e3) / 1e12
+    emit({"phase": "train", "layers": L, "batch": B, "seq": T,
+          "dtype": "bfloat16", "remat": pcfg.remat_policy,
+          "n_params": n_params, "steps": TRAIN_STEPS,
+          "step_ms": step_ms, "step_ms_all": [x * 1e3 for x in step_s],
+          "tokens_per_s": B * T / (step_ms / 1e3),
+          "achieved_tflops": tflops,
+          "peak_share": tflops * 1e12 / PEAK_FLOPS[torch.bfloat16],
+          "loss_first": first, "loss_last": last,
+          "losses": [x.item() for x in losses],
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches_per_step": {k: n // TRAIN_STEPS
+                                for k, n in launches.items()}})
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, batch)
+
+    _profile(one_step, f"train_step B={B} T={T} remat=full")
+    return launches
+
+
+def phase_train_exact() -> None:
+    """Loss and gradients on the card (K1-K3 at a ragged T) against the
+    same call on the CPU (plain versions)."""
+    cfg = TransformerConfig(n_layers=2, dtype=torch.float32, **SERVE_WIDTHS)
+    params = init_params(cfg, seed=SEED + 2, device=DEVICE)
+    batch = _train_batch(cfg.vocab, 1, 300, "cpu",
+                         torch.Generator().manual_seed(SEED + 2))
+
+    def loss_and_grads(device):
+        def leaf(p):
+            return p.detach().to(device).requires_grad_()
+
+        tree = {k: ({kk: leaf(p) for kk, p in v.items()}
+                    if isinstance(v, dict) else leaf(v))
+                for k, v in params.items()}
+        loss = loss_fn(tree, {k: x.to(device) for k, x in batch.items()},
+                       cfg)
+        grads = torch.autograd.grad(loss, param_leaves(tree))
+        return loss.detach(), grads
+
+    _reset_launch_counts()
+    loss, grads = loss_and_grads(DEVICE)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    assert launches == {"flash_fwd": 2, "flash_bwd_dkv": 2,
+                        "flash_bwd_dq": 2}, launches
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads("cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    errs = [float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
+            for g, c in zip(grads, cpu_grads)]
+    emit({"phase": "train_exact", "layers": 2, "batch": 1, "seq": 300,
+          "dtype": "float32", "loss": loss.item(), "cpu_loss": cpu_loss.item(),
+          "loss_rel_err": loss_err, "grad_rel_err_max": max(errs),
+          "grad_rel_err": errs, "tol": EXACT_TOL, "cpu_s": cpu_s,
+          "launches": launches})
+    assert loss_err <= EXACT_TOL and max(errs) <= EXACT_TOL, (loss_err, errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -324,16 +628,39 @@ def main() -> int:
     phase_env(card)
     phase_build()
     k1 = phase_kernel()
-    launches = phase_serve()
+    serve_launches = phase_serve()
     phase_exact()
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:57",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]})
+    bwd = phase_kernel_bwd()
+    train_launches = phase_train()
+    phase_train_exact()
+    bwd_src = "ray_tpu_torch/csrc/flash_bwd.cu"
+    # SDPA's backward computes dQ, dK and dV in one call: both K2's and
+    # K3's library_ms are that call's device time (library_computes says
+    # so)
+    emit({"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "ray_tpu/ops/attention.py:57",
+         "launches": serve_launches,
+         "launches_by_path": {"serve": serve_launches,
+                              "train": train_launches["flash_fwd"]},
+         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+        *({"name": f"flash_bwd_{kernel}", "route": "cuda", "source": bwd_src,
+           "replaces": f"ray_tpu/ops/attention.py:{line}",
+           "launches": train_launches[f"flash_bwd_{kernel}"],
+           "launches_by_path": {
+               "train": train_launches[f"flash_bwd_{kernel}"]},
+           "max_abs_err": max(bwd["max_abs_err_by"][out]
+                              for out in outs), "ms": bwd[f"{kernel}_ms"],
+           "plain_ms": bwd[f"{kernel}_plain_ms"],
+           "bound_ms": bwd[f"{kernel}_bound_ms"],
+           "bound_by": bwd[f"{kernel}_bound_by"],
+           "library_ms": bwd["library_bwd_ms"],
+           "library_computes": "dq, dk, dv"}
+          for kernel, line, outs in (("dkv", 190, ("dk", "dv")),
+                                     ("dq", 224, ("dq",))))]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Attention: plain PyTorch references and the Hopper flash kernel (K1).
+"""Attention: plain PyTorch references and the Hopper flash kernels.
 
 Counterpart of ``ray_tpu/ops/attention.py``. Shapes everywhere:
 [batch, seq, heads, head_dim].
@@ -7,18 +7,24 @@ Counterpart of ``ray_tpu/ops/attention.py``. Shapes everywhere:
   package's XLA path): fp32 scores and softmax, ``p`` cast to v's dtype,
   P·V accumulated in fp32, causal mask bottom-right aligned when
   Tq != Tk.
-* ``flash_attention_reference`` is the plain version of the kernel: the
-  same function as ``_flash_kernel`` (fp32 throughout, masked scores at
-  -1e30), returning ``(out, lse)`` with lse fp32
-  [B, H, T, 1].
-* ``flash_forward`` is the kernel's wrapper: a CUDA tensor launches
-  ``csrc/flash_fwd.cu``, a CPU tensor takes the plain version.
+* ``flash_attention_reference`` is the plain version of K1: the same
+  function as ``_flash_kernel`` (fp32 throughout, masked scores at
+  -1e30), returning ``(out, lse)`` with lse fp32 [B, H, T, 1].
+  ``flash_bwd_dkv_reference`` and ``flash_bwd_dq_reference`` are the
+  plain versions of K2 and K3 (``_bwd_tiles`` with
+  ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``), and
+  ``flash_backward_reference`` the whole of JAX's ``_flash_backward``.
+* ``flash_forward``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` are the
+  kernels' wrappers: a CUDA tensor launches ``csrc/flash_fwd.cu`` or
+  ``csrc/flash_bwd.cu``, a CPU tensor takes the plain version. They are
+  not differentiable themselves.
 * ``flash_attention`` dispatches as the JAX function does, except that on
-  CUDA every Tq == Tk call launches the kernel, at any T (the kernel
-  masks the ragged tail itself).
+  CUDA every Tq == Tk call goes through ``_Flash``, the counterpart of
+  JAX's ``_flash`` custom_vjp: K1 forward, and delta then K2 and K3
+  backward, at any T (the kernels mask the ragged tail themselves).
 
-The backward kernels (K2, K3) are not ported yet: a CUDA input that
-requires grad raises ``NotImplementedError``.
+Each wrapper counts its launches: ``flash_attention.launches`` (K1),
+``flash_bwd_dkv.launches`` (K2) and ``flash_bwd_dq.launches`` (K3).
 """
 
 from __future__ import annotations
@@ -37,6 +43,11 @@ _KERNEL_HEAD_DIMS = (64, 128)
 
 def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
     return sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+
+
+def _causal_mask(T: int, device) -> torch.Tensor:
+    pos = torch.arange(T, device=device)
+    return pos[:, None] >= pos[None, :]
 
 
 def attention(q, k, v, *, causal: bool = True,
@@ -66,9 +77,7 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     sm_scale = _scale(q, sm_scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     if causal:
-        T = q.shape[1]
-        pos = torch.arange(T, device=q.device)
-        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), _NEG_INF)
+        s = s.masked_fill(~_causal_mask(q.shape[1], q.device), _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)   # >= 1: the max term is exp(0)
@@ -76,60 +85,187 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     return out.transpose(1, 2).to(q.dtype), m + torch.log(l)
 
 
+def flash_delta(out, do) -> torch.Tensor:
+    """delta = rowsum(dO * O), fp32 [B, H, T, 1]: the one XLA reduce of
+    JAX's ``_flash_backward``, a torch op here too."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(),
+                        out.float())[..., None].contiguous()
+
+
+def _bwd_probs(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """Plain ``_bwd_tiles`` over the whole [T, T] at once: fp32 ``(p, ds)``
+    [B, H, T, T], sm_scale folded into ds."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(q.shape[1], q.device), _NEG_INF)
+    p = torch.exp(s - lse)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta) * sm_scale
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, causal: bool = True,
+                            sm_scale: float | None = None):
+    """Plain version of K2: ``(dk, dv)`` in k's and v's dtypes."""
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, _scale(q, sm_scale))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, causal: bool = True,
+                           sm_scale: float | None = None):
+    """Plain version of K3: dq in q's dtype."""
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, _scale(q, sm_scale))
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+
+
+def flash_backward_reference(q, k, v, out, lse, do, *, causal: bool = True,
+                             sm_scale: float | None = None):
+    """Plain version of K2 + K3 with delta, the same function as JAX's
+    ``_flash_backward``: ``(dq, dk, dv)`` in the inputs' dtypes."""
+    sm_scale = _scale(q, sm_scale)
+    delta = flash_delta(out, do)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=causal,
+                                     sm_scale=sm_scale)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=causal,
+                                sm_scale=sm_scale)
+    return dq, dk, dv
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TAIL = [ctypes.c_float, _I, _I, _P]   # sm_scale, causal, dtype, stream
+# Each C entry point's arguments: pointers, then B, T, H, D, then strides
+# (flash_bwd.cu takes its inputs' 12 strides as one int64 array).
+_SIGNATURES = {
+    "flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 12 + _TAIL,
+    "flash_bwd_dkv": ([_P] * 8 + [_I] * 4 + [ctypes.POINTER(_L)]
+                      + [_L] * 6 + _TAIL),
+    "flash_bwd_dq": ([_P] * 7 + [_I] * 4 + [ctypes.POINTER(_L)]
+                     + [_L] * 3 + _TAIL),
+}
+
+
 @functools.cache
-def _flash_fwd_fn():
-    fn = kernels.library("flash_fwd").flash_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+def _kernel_fn(lib: str, name: str):
+    fn = getattr(kernels.library(lib), name)
+    fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _kernel_error(err: int) -> str:
-    fn = kernels.library("flash_fwd").flash_fwd_error_string
+def _kernel_error(lib: str, err: int) -> str:
+    fn = getattr(kernels.library(lib), f"{lib}_error_string")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()
 
 
-def _launch_flash_fwd(q, k, v, causal: bool, sm_scale: float):
-    """Launch csrc/flash_fwd.cu on q's current stream; ``(out, lse)``."""
+def _check_kernel_inputs(q, *others) -> None:
+    """What every flash kernel refuses: another dtype than fp32/bf16,
+    mixed dtypes or devices, shapes other than one [B, T, H, D], a
+    head_dim other than 64/128, an empty input, or head_dim strided."""
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k, v must share one dtype")
-    if q.dim() != 4 or q.shape != k.shape or k.shape != v.shape:
-        raise ValueError(f"q, k, v must share one [B, T, H, D] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("q, k, v must lie on one device")
+    if any(x.dtype != q.dtype for x in others):
+        raise TypeError("flash kernel inputs must share one dtype")
+    if q.dim() != 4 or any(x.shape != q.shape for x in others):
+        shapes = [tuple(x.shape) for x in (q, *others)]
+        raise ValueError(f"flash kernel inputs must share one [B, T, H, D] "
+                         f"shape, got {shapes}")
+    if any(x.device != q.device for x in others):
+        raise ValueError("flash kernel inputs must lie on one device")
     B, T, H, D = q.shape
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in "
                          f"{_KERNEL_HEAD_DIMS}, got {D}")
     if min(B, T, H) < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
-    if any(x.stride(-1) != 1 for x in (q, k, v)):
+    if any(x.stride(-1) != 1 for x in (q, *others)):
         raise ValueError("flash kernel needs unit stride on head_dim")
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, T, 1), dtype=torch.float32, device=q.device)
-    fn = _flash_fwd_fn()
+
+
+def _check_rows(q, *rows) -> None:
+    """lse and delta: contiguous fp32 [B, H, T, 1] on q's device."""
+    B, T, H, _ = q.shape
+    for x in rows:
+        if (x.dtype != torch.float32 or x.shape != (B, H, T, 1)
+                or not x.is_contiguous() or x.device != q.device):
+            raise ValueError(f"lse and delta must be contiguous float32 "
+                             f"{(B, H, T, 1)} on {q.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _launch(lib: str, q, fn, *args) -> None:
+    """Call a kernel's C entry point on q's current stream; raise on a
+    failed launch."""
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), B, T, H, D, *q.stride()[:3],
-                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 float(sm_scale), int(causal), _KERNEL_DTYPES[q.dtype],
-                 stream)
+        err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: "
-                           f"{_kernel_error(err)} (cudaError {err})")
+        raise RuntimeError(f"{lib} kernel launch failed: "
+                           f"{_kernel_error(lib, err)} (cudaError {err})")
+
+
+def _launch_flash_fwd(q, k, v, causal: bool, sm_scale: float):
+    """Launch csrc/flash_fwd.cu on q's current stream; ``(out, lse)``."""
+    _check_kernel_inputs(q, k, v)
+    B, T, H, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T, 1), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", q, _kernel_fn("flash_fwd", "flash_fwd"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, T, H, D, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(sm_scale), int(causal), _KERNEL_DTYPES[q.dtype])
     flash_attention.launches += 1
     return out, lse
+
+
+def _in_strides(*xs):
+    """The (b, t, h) strides of q, k, v and dO as flash_bwd.cu takes
+    them: one array of 12 int64."""
+    return (_L * 12)(*(st for x in xs for st in x.stride()[:3]))
+
+
+def _launch_flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
+    """Launch K2 (csrc/flash_bwd.cu) on q's current stream; ``(dk, dv)``."""
+    _check_kernel_inputs(q, k, v, do)
+    _check_rows(q, lse, delta)
+    B, T, H, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd", q, _kernel_fn("flash_bwd", "flash_bwd_dkv"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, T, H, D, _in_strides(q, k, v, do), *dk.stride()[:3],
+            *dv.stride()[:3], float(sm_scale), int(causal),
+            _KERNEL_DTYPES[q.dtype])
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _launch_flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
+    """Launch K3 (csrc/flash_bwd.cu) on q's current stream; dq."""
+    _check_kernel_inputs(q, k, v, do)
+    _check_rows(q, lse, delta)
+    B, T, H, D = q.shape
+    dq = torch.empty_like(q)
+    _launch("flash_bwd", q, _kernel_fn("flash_bwd", "flash_bwd_dq"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T, H, D,
+            _in_strides(q, k, v, do), *dq.stride()[:3], float(sm_scale),
+            int(causal), _KERNEL_DTYPES[q.dtype])
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def _no_grad_needed(name: str, *xs) -> None:
+    """The wrappers' outputs carry no autograd history on CUDA: refuse
+    inputs that would need one rather than drop the gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name} is not differentiable on CUDA; call flash_attention, "
+            f"whose autograd Function runs K2 and K3 backward")
 
 
 def flash_forward(q, k, v, *, causal: bool = True,
@@ -140,10 +276,59 @@ def flash_forward(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         return flash_attention_reference(q, k, v, causal=causal,
                                          sm_scale=sm_scale)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention backward kernels are not ported yet")
+    _no_grad_needed("flash_forward", q, k, v)
     return _launch_flash_fwd(q, k, v, causal, sm_scale)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                  sm_scale: float | None = None):
+    """K2's wrapper: ``(dk, dv)`` from lse (K1's) and delta
+    (``flash_delta``). CUDA tensors launch the kernel (or raise); CPU
+    tensors take ``flash_bwd_dkv_reference``."""
+    sm_scale = _scale(q, sm_scale)
+    if q.device.type != "cuda":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                       causal=causal, sm_scale=sm_scale)
+    _no_grad_needed("flash_bwd_dkv", q, k, v, do)
+    return _launch_flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                 sm_scale: float | None = None):
+    """K3's wrapper: dq. CUDA tensors launch the kernel (or raise); CPU
+    tensors take ``flash_bwd_dq_reference``."""
+    sm_scale = _scale(q, sm_scale)
+    if q.device.type != "cuda":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                      causal=causal, sm_scale=sm_scale)
+    _no_grad_needed("flash_bwd_dq", q, k, v, do)
+    return _launch_flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with its gradient, the counterpart of JAX's
+    ``_flash`` custom_vjp: forward K1, saving (q, k, v, out, lse);
+    backward delta, then K2 and K3. On CPU tensors every step takes its
+    plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        out, lse = flash_forward(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:   # e.g. the expanded grad of a sum()
+            do = do.contiguous()
+        delta = flash_delta(out, do)
+        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -151,16 +336,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     block_k: int = 128) -> torch.Tensor:
     """Blockwise online-softmax attention; the JAX signature.
 
-    CUDA with Tq == Tk: the K1 kernel, at any T. CUDA with Tq != Tk
-    (decode) and every CPU call: ``attention``, as the JAX function does
-    off-TPU. ``block_q``/``block_k`` are kept for signature parity: the
-    CUDA kernel tiles at 64 x 64 whatever they say.
+    CUDA with Tq == Tk: ``_Flash`` (K1 forward; K2 and K3 backward when
+    an input requires grad), at any T. CUDA with Tq != Tk (decode) and
+    every CPU call: ``attention`` under torch autograd, as the JAX
+    function does off-TPU. ``block_q``/``block_k`` are kept for signature
+    parity: the CUDA kernels tile at 64 x 64 whatever they say.
     """
     del block_q, block_k
     sm_scale = _scale(q, sm_scale)
     if q.device.type != "cuda" or k.shape[1] != q.shape[1]:
         return attention(q, k, v, causal=causal, sm_scale=sm_scale)
-    return flash_forward(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+    return _Flash.apply(q, k, v, causal, sm_scale)
 
 
 flash_attention.launches = 0   # K1 launches since the last reset
+flash_bwd_dkv.launches = 0     # K2 launches since the last reset
+flash_bwd_dq.launches = 0      # K3 launches since the last reset

@@ -1,7 +1,8 @@
 """Rules of the port package itself.
 
-* ``ray_tpu_torch`` and ``chip_smoke.py`` import neither jax nor the
-  JAX package (the port keeps its own copy of what it needs).
+* ``ray_tpu_torch``, ``chip_smoke.py`` and ``bwd_fault_check.py`` import
+  neither jax nor the JAX package (the port keeps its own copy of what
+  it needs).
 * Entry points run on CUDA unless the caller asks for the CPU: without
   CUDA, ``device=None`` raises instead of carrying on on the CPU.
 * The CUDA kernels build from source with nvcc and have no fallback: no
@@ -31,7 +32,8 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "bwd_fault_check.py"]
     assert len(files) > 10
     bad = [(f.relative_to(REPO).as_posix(), mod) for f in files
            for mod in _imported_roots(f)
@@ -81,4 +83,4 @@ def test_library_name_tracks_sources():
     path = kernels.library_path("flash_fwd")
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
-    assert kernels.kernel_names() == ["flash_fwd"]
+    assert kernels.kernel_names() == ["flash_bwd", "flash_fwd"]
