@@ -25,23 +25,27 @@ Phases, one JSON line each, in order:
    through the slot engine (a slot freed and reused mid-flight) equal
    the whole-batch ``generate`` exactly, and each first token equals
    the argmax of ``forward`` on the prompt.
-6. ``kernel_bwd``: K2 and K3 (``csrc/flash_bwd.cu``) through their
-   wrappers against ``flash_backward_reference`` on the card, with O and
-   lse from K1, at the training shape and around it (ragged T,
-   non-causal, head_dim 128), bf16 held to two ulps; each kernel and its
-   plain version timed with CUDA events, the backward of
+6. ``kernel_bwd``: K2 and K3 through their wrappers against
+   ``flash_backward_reference`` on the card, with O and lse from K1, at
+   the training shape and around it (ragged T, non-causal, head_dim
+   128, the prefill width); bf16 runs the tensor-core route
+   (``csrc/flash_bwd_sm90.cu``) and is held to two ulps, fp32 the scalar
+   route (``csrc/flash_bwd.cu``); each row names its route. Each kernel
+   and its plain version timed with CUDA events, the backward of
    ``scaled_dot_product_attention`` (a yardstick only) by its kernels'
    device time, beside the least time the card could take.
 7. ``train``: the serve phase's widths, bf16, 8 layers, batch 16 x 1024
    tokens, remat "full", through ``make_train_step``: one warm-up step,
    then timed steps with the kernels' launch counts reset just before
-   and read just after (K1 twice per layer and step, K2 and K3 once);
-   step time, tokens/s, TFLOP/s, peak memory, and a loss that falls.
+   and read just after (K1 twice per layer and step, K2 and K3 once,
+   all on the sm90 route); step time, tokens/s, TFLOP/s, peak memory,
+   and a loss that falls.
    Then a ``profile`` line over one step.
 8. ``train_exact``: fp32, the same widths at 2 layers, one ragged
    sequence of 300 tokens: ``loss_fn``'s value and every gradient leaf
-   on the card (K1-K3) against the same call on the CPU (plain
-   versions), relative to each leaf's largest magnitude.
+   on the card (K1, and K2-K3 on the scalar route) against the same
+   call on the CPU (plain versions), relative to each leaf's largest
+   magnitude.
 
 Then the ``kernels`` line, the ``nvidia-smi`` card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without
@@ -66,7 +70,7 @@ from ray_tpu_torch.models.transformer import (ParallelConfig,
                                               TransformerConfig, forward,
                                               init_params, loss_fn,
                                               make_train_step, param_leaves)
-from ray_tpu_torch.ops.attention import (flash_attention,
+from ray_tpu_torch.ops.attention import (_bwd_route, flash_attention,
                                          flash_attention_reference,
                                          flash_backward_reference,
                                          flash_bwd_dkv,
@@ -103,13 +107,18 @@ SERVE_WIDTHS = dict(vocab=32768, d_model=1024, n_heads=16, d_ff=4096,
 # dQ, dK, dV tolerances (atol, rtol) of K2/K3 against their plain
 # version. fp32: that of tests/test_ops.py for the Pallas backward (the
 # sums differ only in order). bf16: both sides round fp32 sums that
-# differ as little, so they may land one bf16 ulp apart, at most 2^-7 of
+# differ as little (the sm90 route keeps p and ds to ~16 bits as a hi +
+# lo pair of bf16), so they may land one bf16 ulp apart, at most 2^-7 of
 # the value; rtol allows two ulps and atol values near 0. A kernel that
-# drops a tile moves dQ, dK, dV (~0.05 at the training shape) far past
-# it (bwd_fault_check.py plants such faults).
+# drops a tile, or the lo half of the split, moves dQ, dK, dV (~0.05 at
+# the training shape) far past it (bwd_fault_check.py plants such
+# faults).
 BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-4, 2.0 ** -6)}
+TRAIN_CASE_FP32 = (16, 1024, 16, 64, torch.float32, True)   # scalar route
 BWD_CASES = [
     TRAIN_CASE,
+    TRAIN_CASE_FP32,
+    (16, 512, 16, 64, torch.bfloat16, True),   # the prefill width
     (1, 512, 16, 64, torch.float32, True),
     (1, 300, 16, 64, torch.float32, True),     # ragged tail of T
     (1, 300, 16, 64, torch.bfloat16, True),
@@ -117,6 +126,8 @@ BWD_CASES = [
     (2, 256, 8, 128, torch.float32, True),     # head_dim 128
     (2, 256, 8, 128, torch.bfloat16, True),
 ]
+BWD_SOURCES = {"sm90": "ray_tpu_torch/csrc/flash_bwd_sm90.cu",
+               "scalar": "ray_tpu_torch/csrc/flash_bwd.cu"}
 # The trainer benchmark's baseline point (ray_tpu/models/bench_model.py:
 # the widths above, 8 layers, batch 16 x 1024 tokens, remat "full").
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 16, 1024, 6
@@ -150,8 +161,11 @@ def phase_build() -> None:
     logs = kernels.build()
     for name in kernels.kernel_names():
         kernels.library(name)
+    # per kernel instantiation: its name, then its spills and registers
+    # (and any ptxas warning, e.g. serialized wgmma)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if any(w in ln for w in ("Compiling entry", "registers",
+                                      "spill", "warning"))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs), "ptxas": ptxas})
 
@@ -274,9 +288,14 @@ def _iters(B, T, H):
     return 10 if B * T * H > 2 ** 17 else 20 if B * T * H > 2 ** 15 else 100
 
 
+def _routes_launched() -> dict:
+    return {"dkv": dict(flash_bwd_dkv.launches_by_route),
+            "dq": dict(flash_bwd_dq.launches_by_route)}
+
+
 def phase_kernel_bwd() -> dict:
-    """K2 and K3 against their plain version, per case; returns the
-    training shape's row."""
+    """K2 and K3 against their plain version, per case; returns the rows
+    by case."""
     rows, failures = {}, []
     for i, case in enumerate(BWD_CASES):
         B, T, H, D, dtype, causal = case
@@ -286,8 +305,14 @@ def phase_kernel_bwd() -> dict:
                        for _ in range(4))
         out, lse = flash_forward(q, k, v, causal=causal)
         delta = flash_delta(out, do)
+        route = _bwd_route(q)
+        before = _routes_launched()
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+        after = _routes_launched()
+        for kernel in ("dkv", "dq"):
+            assert after[kernel][route] == before[kernel][route] + 1, (
+                case, route, before, after)
         refs = flash_backward_reference(q, k, v, out, lse, do, causal=causal)
         torch.cuda.synchronize()
         atol, rtol = BWD_TOL[dtype]
@@ -315,6 +340,7 @@ def phase_kernel_bwd() -> dict:
         kw = dict(causal=causal)
         row = {"phase": "kernel_bwd", "shape": [B, T, H, D],
                "dtype": str(dtype).removeprefix("torch."), "causal": causal,
+               "route": route, "source": BWD_SOURCES[route],
                "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
                "tol": [atol, rtol], "tol_share_by": shares, "ok": ok,
                "dkv_ms": time_ms(lambda: flash_bwd_dkv(
@@ -339,7 +365,7 @@ def phase_kernel_bwd() -> dict:
     if failures:
         raise AssertionError(f"K2/K3 disagree with their plain version at "
                              f"{failures}")
-    return rows[TRAIN_CASE]
+    return rows
 
 
 class TimedEngine:
@@ -466,7 +492,10 @@ def _profile(fn, label: str) -> None:
           "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
           "device_ms_by_class": by_class,
           "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                  for e in top]})
+                  for e in top],
+          "port_kernels": [[e.key[:80], e.self_device_time_total / 1e3,
+                            e.count] for e in events
+                           if _kernel_class(e.key) == "port_kernels"]})
 
 
 def phase_profile(engine, prompt) -> None:
@@ -509,8 +538,9 @@ def _launch_counts() -> dict:
 
 def _reset_launch_counts() -> None:
     flash_attention.launches = 0
-    flash_bwd_dkv.launches = 0
-    flash_bwd_dq.launches = 0
+    for fn in (flash_bwd_dkv, flash_bwd_dq):
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def _train_batch(vocab, B, T, device, gen):
@@ -518,9 +548,9 @@ def _train_batch(vocab, B, T, device, gen):
     return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
 
 
-def phase_train() -> dict:
+def phase_train() -> tuple[dict, dict]:
     """The full-width train step; returns the launches of its timed
-    steps by kernel."""
+    steps by kernel, and K2's and K3's by route."""
     cfg = TransformerConfig(n_layers=TRAIN_LAYERS, dtype=torch.bfloat16,
                             **SERVE_WIDTHS)
     pcfg = ParallelConfig(remat=True, remat_policy="full")
@@ -545,9 +575,13 @@ def phase_train() -> dict:
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
     launches = _launch_counts()
+    routes = _routes_launched()
     want = {"flash_fwd": 2 * L * TRAIN_STEPS,   # forward + remat recompute
             "flash_bwd_dkv": L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS}
     assert launches == want, (launches, want)
+    # every K2 and K3 launch of the bf16 step took the tensor-core route
+    want_routes = {"sm90": L * TRAIN_STEPS, "scalar": 0}
+    assert routes == {"dkv": want_routes, "dq": want_routes}, routes
     first, last = loss0.item(), losses[-1].item()
     assert np.isfinite(first) and np.isfinite(last), (first, last)
     assert last < first, (first, last)
@@ -568,14 +602,17 @@ def phase_train() -> dict:
           "losses": [x.item() for x in losses],
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches_per_step": {k: n // TRAIN_STEPS
-                                for k, n in launches.items()}})
+                                for k, n in launches.items()},
+          "bwd_launches_per_step_by_route": {
+              k: {r: n // TRAIN_STEPS for r, n in by.items()}
+              for k, by in routes.items()}})
 
     def one_step():
         nonlocal params, opt_state
         params, opt_state, _ = step(params, opt_state, batch)
 
     _profile(one_step, f"train_step B={B} T={T} remat=full")
-    return launches
+    return launches, routes
 
 
 def phase_train_exact() -> None:
@@ -604,6 +641,9 @@ def phase_train_exact() -> None:
     launches = _launch_counts()
     assert launches == {"flash_fwd": 2, "flash_bwd_dkv": 2,
                         "flash_bwd_dq": 2}, launches
+    routes = _routes_launched()
+    assert routes == {"dkv": {"sm90": 0, "scalar": 2},
+                      "dq": {"sm90": 0, "scalar": 2}}, routes
     t0 = time.perf_counter()
     cpu_loss, cpu_grads = loss_and_grads("cpu")
     cpu_s = time.perf_counter() - t0
@@ -631,12 +671,24 @@ def main() -> int:
     serve_launches = phase_serve()
     phase_exact()
     bwd = phase_kernel_bwd()
-    train_launches = phase_train()
+    train_launches, train_routes = phase_train()
     phase_train_exact()
-    bwd_src = "ray_tpu_torch/csrc/flash_bwd.cu"
-    # SDPA's backward computes dQ, dK and dV in one call: both K2's and
-    # K3's library_ms are that call's device time (library_computes says
-    # so)
+    # K2 and K3 at the training shape on each route: bf16 (the train
+    # path) on sm90, fp32 on the scalar kernels
+    by_route = {"sm90": bwd[TRAIN_CASE], "scalar": bwd[TRAIN_CASE_FP32]}
+
+    def bwd_numbers(row, kernel, outs):
+        # SDPA's backward computes dQ, dK and dV in one call: both K2's
+        # and K3's library_ms are that call's device time
+        # (library_computes says so)
+        return {"max_abs_err": max(row["max_abs_err_by"][o] for o in outs),
+                "ms": row[f"{kernel}_ms"],
+                "plain_ms": row[f"{kernel}_plain_ms"],
+                "bound_ms": row[f"{kernel}_bound_ms"],
+                "bound_by": row[f"{kernel}_bound_by"],
+                "library_ms": row["library_bwd_ms"],
+                "library_computes": "dq, dk, dv"}
+
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "ray_tpu_torch/csrc/flash_fwd.cu",
@@ -647,18 +699,18 @@ def main() -> int:
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
-        *({"name": f"flash_bwd_{kernel}", "route": "cuda", "source": bwd_src,
+        *({"name": f"flash_bwd_{kernel}", "route": "cuda",
+           "source": BWD_SOURCES["sm90"],
            "replaces": f"ray_tpu/ops/attention.py:{line}",
            "launches": train_launches[f"flash_bwd_{kernel}"],
            "launches_by_path": {
                "train": train_launches[f"flash_bwd_{kernel}"]},
-           "max_abs_err": max(bwd["max_abs_err_by"][out]
-                              for out in outs), "ms": bwd[f"{kernel}_ms"],
-           "plain_ms": bwd[f"{kernel}_plain_ms"],
-           "bound_ms": bwd[f"{kernel}_bound_ms"],
-           "bound_by": bwd[f"{kernel}_bound_by"],
-           "library_ms": bwd["library_bwd_ms"],
-           "library_computes": "dq, dk, dv"}
+           "launches_by_route": train_routes[kernel],
+           **bwd_numbers(by_route["sm90"], kernel, outs),
+           "routes": {route: {"source": BWD_SOURCES[route],
+                              "dtype": row["dtype"],
+                              **bwd_numbers(row, kernel, outs)}
+                      for route, row in by_route.items()}}
           for kernel, line, outs in (("dkv", 190, ("dk", "dv")),
                                      ("dq", 224, ("dq",))))]})
     print(card, flush=True)

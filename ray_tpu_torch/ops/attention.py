@@ -15,16 +15,19 @@ Counterpart of ``ray_tpu/ops/attention.py``. Shapes everywhere:
   ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``), and
   ``flash_backward_reference`` the whole of JAX's ``_flash_backward``.
 * ``flash_forward``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` are the
-  kernels' wrappers: a CUDA tensor launches ``csrc/flash_fwd.cu`` or
-  ``csrc/flash_bwd.cu``, a CPU tensor takes the plain version. They are
-  not differentiable themselves.
+  kernels' wrappers: a CUDA tensor launches ``csrc/flash_fwd.cu`` (K1)
+  or, for K2 and K3, the route ``_bwd_route`` picks by dtype: bf16 the
+  tensor-core kernels of ``csrc/flash_bwd_sm90.cu``, fp32 the scalar
+  ones of ``csrc/flash_bwd.cu``. A CPU tensor takes the plain version.
+  They are not differentiable themselves.
 * ``flash_attention`` dispatches as the JAX function does, except that on
   CUDA every Tq == Tk call goes through ``_Flash``, the counterpart of
   JAX's ``_flash`` custom_vjp: K1 forward, and delta then K2 and K3
   backward, at any T (the kernels mask the ragged tail themselves).
 
 Each wrapper counts its launches: ``flash_attention.launches`` (K1),
-``flash_bwd_dkv.launches`` (K2) and ``flash_bwd_dq.launches`` (K3).
+``flash_bwd_dkv.launches`` (K2) and ``flash_bwd_dq.launches`` (K3); K2
+and K3 also count them by route in ``.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -134,15 +137,21 @@ def flash_backward_reference(q, k, v, out, lse, do, *, causal: bool = True,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TAIL = [ctypes.c_float, _I, _I, _P]   # sm_scale, causal, dtype, stream
+_TAIL_BF16 = [ctypes.c_float, _I, _P]  # sm_scale, causal, stream
 # Each C entry point's arguments: pointers, then B, T, H, D, then strides
-# (flash_bwd.cu takes its inputs' 12 strides as one int64 array).
+# (the backward kernels take their inputs' 12 strides as one int64 array).
+_DKV_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.POINTER(_L)] + [_L] * 6
+_DQ_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.POINTER(_L)] + [_L] * 3
 _SIGNATURES = {
     "flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 12 + _TAIL,
-    "flash_bwd_dkv": ([_P] * 8 + [_I] * 4 + [ctypes.POINTER(_L)]
-                      + [_L] * 6 + _TAIL),
-    "flash_bwd_dq": ([_P] * 7 + [_I] * 4 + [ctypes.POINTER(_L)]
-                     + [_L] * 3 + _TAIL),
+    "flash_bwd_dkv": _DKV_ARGS + _TAIL,
+    "flash_bwd_dq": _DQ_ARGS + _TAIL,
+    "flash_bwd_dkv_sm90": _DKV_ARGS + _TAIL_BF16,
+    "flash_bwd_dq_sm90": _DQ_ARGS + _TAIL_BF16,
 }
+# K2/K3 route by dtype -> the library (csrc/<name>.cu) that holds it
+_BWD_ROUTES = {torch.bfloat16: "sm90", torch.float32: "scalar"}
+_BWD_LIBS = {"sm90": "flash_bwd_sm90", "scalar": "flash_bwd"}
 
 
 @functools.cache
@@ -196,6 +205,30 @@ def _check_rows(q, *rows) -> None:
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def _bwd_route(q) -> str:
+    """Which K2/K3 kernels a CUDA input of q's dtype launches: ``"sm90"``
+    (bf16: the tensor-core kernels of ``csrc/flash_bwd_sm90.cu``) or
+    ``"scalar"`` (fp32: ``csrc/flash_bwd.cu``, whose fp32 FMAs hold the
+    fp32 tolerance that TF32 tensor cores could not)."""
+    if q.dtype not in _BWD_ROUTES:
+        raise TypeError(f"flash kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    return _BWD_ROUTES[q.dtype]
+
+
+def _check_sm90_alignment(*xs) -> None:
+    """The sm90 kernels copy 16-byte chunks with cp.async and store
+    bf16 pairs: every base pointer must be 16-byte aligned and every
+    (b, t, h) stride a multiple of 8 elements. Raises, never falls back."""
+    for x in xs:
+        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(
+                f"flash_bwd_sm90 needs 16-byte aligned tensors with "
+                f"(b, t, h) strides in multiples of 8 elements, got "
+                f"data_ptr % 16 = {x.data_ptr() % 16}, strides "
+                f"{tuple(x.stride())}")
+
+
 def _launch(lib: str, q, fn, *args) -> None:
     """Call a kernel's C entry point on q's current stream; raise on a
     failed launch."""
@@ -223,39 +256,55 @@ def _launch_flash_fwd(q, k, v, causal: bool, sm_scale: float):
 
 
 def _in_strides(*xs):
-    """The (b, t, h) strides of q, k, v and dO as flash_bwd.cu takes
-    them: one array of 12 int64."""
+    """The (b, t, h) strides of q, k, v and dO as the backward kernels
+    take them: one array of 12 int64."""
     return (_L * 12)(*(st for x in xs for st in x.stride()[:3]))
 
 
+def _launch_bwd(kernel: str, ins, outs, lse, delta, causal,
+                sm_scale) -> str:
+    """Launch K2 (``kernel="dkv"``) or K3 (``"dq"``) on the route of q's
+    dtype, on q's current stream; returns the route. ``ins`` is
+    (q, k, v, dO), ``outs`` (dk, dv) or (dq,)."""
+    q = ins[0]
+    B, T, H, D = q.shape
+    route = _bwd_route(q)
+    args = [*(x.data_ptr() for x in ins), lse.data_ptr(), delta.data_ptr(),
+            *(x.data_ptr() for x in outs), B, T, H, D, _in_strides(*ins),
+            *(st for x in outs for st in x.stride()[:3]), float(sm_scale),
+            int(causal)]
+    if route == "sm90":
+        _check_sm90_alignment(*ins, *outs)
+        name = f"flash_bwd_{kernel}_sm90"
+    else:
+        name = f"flash_bwd_{kernel}"
+        args.append(_KERNEL_DTYPES[q.dtype])
+    lib = _BWD_LIBS[route]
+    _launch(lib, q, _kernel_fn(lib, name), *args)
+    return route
+
+
 def _launch_flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
-    """Launch K2 (csrc/flash_bwd.cu) on q's current stream; ``(dk, dv)``."""
+    """Launch K2 on q's current stream; ``(dk, dv)``."""
     _check_kernel_inputs(q, k, v, do)
     _check_rows(q, lse, delta)
-    B, T, H, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd", q, _kernel_fn("flash_bwd", "flash_bwd_dkv"),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, T, H, D, _in_strides(q, k, v, do), *dk.stride()[:3],
-            *dv.stride()[:3], float(sm_scale), int(causal),
-            _KERNEL_DTYPES[q.dtype])
+    route = _launch_bwd("dkv", (q, k, v, do), (dk, dv), lse, delta, causal,
+                        sm_scale)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_by_route[route] += 1
     return dk, dv
 
 
 def _launch_flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
-    """Launch K3 (csrc/flash_bwd.cu) on q's current stream; dq."""
+    """Launch K3 on q's current stream; dq."""
     _check_kernel_inputs(q, k, v, do)
     _check_rows(q, lse, delta)
-    B, T, H, D = q.shape
     dq = torch.empty_like(q)
-    _launch("flash_bwd", q, _kernel_fn("flash_bwd", "flash_bwd_dq"),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T, H, D,
-            _in_strides(q, k, v, do), *dq.stride()[:3], float(sm_scale),
-            int(causal), _KERNEL_DTYPES[q.dtype])
+    route = _launch_bwd("dq", (q, k, v, do), (dq,), lse, delta, causal,
+                        sm_scale)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_by_route[route] += 1
     return dq
 
 
@@ -352,3 +401,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
 flash_attention.launches = 0   # K1 launches since the last reset
 flash_bwd_dkv.launches = 0     # K2 launches since the last reset
 flash_bwd_dq.launches = 0      # K3 launches since the last reset
+flash_bwd_dkv.launches_by_route = {"sm90": 0, "scalar": 0}   # K2, by route
+flash_bwd_dq.launches_by_route = {"sm90": 0, "scalar": 0}    # K3, by route

@@ -83,4 +83,5 @@ def test_library_name_tracks_sources():
     path = kernels.library_path("flash_fwd")
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
-    assert kernels.kernel_names() == ["flash_bwd", "flash_fwd"]
+    assert kernels.kernel_names() == ["flash_bwd", "flash_bwd_sm90",
+                                      "flash_fwd"]
