@@ -1,15 +1,17 @@
-// Flash-attention forward (K1) for Hopper, CUDA C++ with scalar FMAs.
+// Flash-attention forward (K1) for Hopper, CUDA C++ with scalar FMAs:
+// the fp32 route (bf16 runs the tensor-core kernel of
+// flash_fwd_sm90.cu; TF32 tensor cores could not hold fp32's tolerance).
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py:_flash_kernel (launched
 // by _flash_forward through pl.pallas_call). It computes the same function:
 // blockwise online-softmax attention, causal or not; running max m,
 // denominator l and accumulator kept in fp32; tiles above the causal
 // diagonal skipped; masked scores set to -1e30; l == 0 guarded; O written
-// in the input dtype and lse = m + log(l) as fp32 [B, H, T, 1].
+// in fp32 and lse = m + log(l) as fp32 [B, H, T, 1].
 //
 // Layout: q, k, v, o are [B, T, H, D] read and written through their
 // (b, t, h) strides with unit stride on D, so no transpose copy is made.
-// dtype is fp32 or bf16, D is 64 or 128; anything else is refused.
+// dtype is fp32, D is 64 or 128; anything else is refused.
 //
 // Design: one thread block of 256 threads per (b, h, 64-row q-tile). The
 // block loops over 64-row k-tiles itself (the TPU's sequential ki grid
@@ -23,17 +25,13 @@
 // lanes that share ty with warp shuffles and the rescale by alpha stays in
 // registers. Heavy causal q-tiles are scheduled first.
 //
-// Bound on the H100: at the serving prefill shape (1 x 512 x 16 x 64,
-// bf16, causal) the function needs 4 * H * D * T(T+1)/2 ~ 0.54 GFLOP
-// (~0.5 us of bf16 tensor-core time at 989 TFLOP/s) and moves ~4 MB
-// (q, k, v read once, o written once, lse: ~1.2 us at 3.35 TB/s). So the
-// least time is set by bytes, and in practice the kernel is bound by
-// launch latency and occupancy: 8 q-tiles x 16 heads = 128 blocks for
-// 132 SMs. This simple design does little about that: it runs its
-// products as scalar fp32 FMAs out of shared memory (no tensor cores, no
-// wgmma, no TMA, no cp.async pipelining); that is left for later work.
+// Bound on the H100: at the prefill width in fp32 (1 x 512 x 16 x 64,
+// causal) the function needs 4 * H * D * T(T+1)/2 ~ 0.54 GFLOP (~8 us
+// at 67 TFLOP/s of fp32 FMAs) on ~8.4 MB (~2.5 us at 3.35 TB/s), so it
+// is bound by operations. This simple design runs its products as
+// scalar fp32 FMAs out of shared memory (no TMA, no cp.async
+// pipelining); fp32 models run it, not the bf16 main paths.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,20 +47,6 @@ struct Strides {
   long long b, t, h;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   // Q and K rows padded by one float so column reads hit distinct banks.
@@ -70,10 +54,10 @@ constexpr size_t smem_bytes() {
                           kBlockQ * (kBlockK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int seq, int heads, Strides sq,
                  Strides sk, Strides sv, Strides so, float sm_scale,
                  int causal) {
@@ -93,13 +77,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i % D, t = q0 + r;
-    qs[r * LD + d] = t < seq ? to_float(qb[t * sq.t + d]) : 0.f;
+    qs[r * LD + d] = t < seq ? qb[t * sq.t + d] : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kOut];
@@ -122,8 +106,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int r = i / D, d = i % D, t = k0 + r;
       const bool in = t < seq;
-      ks[r * LD + d] = in ? to_float(kb[t * sk.t + d]) : 0.f;
-      vs[r * D + d] = in ? to_float(vb[t * sv.t + d]) : 0.f;
+      ks[r * LD + d] = in ? kb[t * sk.t + d] : 0.f;
+      vs[r * D + d] = in ? vb[t * sv.t + d] : 0.f;
     }
     __syncthreads();
 
@@ -197,36 +181,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = q0 + ty + 16 * i;
     if (t >= seq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + b * so.b + t * so.t + h * so.h;
+    float* orow = o + b * so.b + t * so.t + h * so.h;
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
-      orow[tx + 16 * c] = from_float<T>(acc[i][c] / li);
+      orow[tx + 16 * c] = acc[i][c] / li;
     if (tx == 0) lse[((long long)b * heads + h) * seq + t] = m[i] + logf(li);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch, int seq, int heads, Strides sq,
                    Strides sk, Strides sv, Strides so, float sm_scale,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse),
       seq, heads, sq, sk, sv, so, sm_scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Strides are in elements. Returns a
-// cudaError_t (0 on success); the caller raises on anything else.
+// dtype: 0 = fp32 (the only one taken; bf16 has its own kernel in
+// flash_fwd_sm90.cu). Strides are in elements. Returns a cudaError_t (0
+// on success); the caller raises on anything else.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int batch, int seq, int heads,
                          int head_dim, long long sqb, long long sqt,
@@ -238,14 +224,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
       so{sob, sot, soh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RTT_LAUNCH(T, D)                                                  \
-  return static_cast<int>(launch<T, D>(q, k, v, o, lse, batch, seq, heads, \
-                                       sq, sk, sv, so, sm_scale, causal, st))
-  if (dtype == 0 && head_dim == 64) RTT_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) RTT_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) RTT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) RTT_LAUNCH(__nv_bfloat16, 128);
-#undef RTT_LAUNCH
+  if (dtype == 0 && head_dim == 64)
+    return static_cast<int>(launch<64>(q, k, v, o, lse, batch, seq, heads,
+                                       sq, sk, sv, so, sm_scale, causal, st));
+  if (dtype == 0 && head_dim == 128)
+    return static_cast<int>(launch<128>(q, k, v, o, lse, batch, seq, heads,
+                                        sq, sk, sv, so, sm_scale, causal,
+                                        st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

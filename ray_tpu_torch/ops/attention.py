@@ -15,19 +15,20 @@ Counterpart of ``ray_tpu/ops/attention.py``. Shapes everywhere:
   ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``), and
   ``flash_backward_reference`` the whole of JAX's ``_flash_backward``.
 * ``flash_forward``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` are the
-  kernels' wrappers: a CUDA tensor launches ``csrc/flash_fwd.cu`` (K1)
-  or, for K2 and K3, the route ``_bwd_route`` picks by dtype: bf16 the
-  tensor-core kernels of ``csrc/flash_bwd_sm90.cu``, fp32 the scalar
-  ones of ``csrc/flash_bwd.cu``. A CPU tensor takes the plain version.
-  They are not differentiable themselves.
+  kernels' wrappers: a CUDA tensor launches the route that ``_route``
+  picks by dtype, K1 to K3 alike: bf16 the tensor-core kernels
+  (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``), fp32 the
+  scalar ones (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). A CPU
+  tensor takes the plain version. They are not differentiable
+  themselves.
 * ``flash_attention`` dispatches as the JAX function does, except that on
   CUDA every Tq == Tk call goes through ``_Flash``, the counterpart of
   JAX's ``_flash`` custom_vjp: K1 forward, and delta then K2 and K3
   backward, at any T (the kernels mask the ragged tail themselves).
 
 Each wrapper counts its launches: ``flash_attention.launches`` (K1),
-``flash_bwd_dkv.launches`` (K2) and ``flash_bwd_dq.launches`` (K3); K2
-and K3 also count them by route in ``.launches_by_route``.
+``flash_bwd_dkv.launches`` (K2) and ``flash_bwd_dq.launches`` (K3), and
+by route in ``.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -140,17 +141,20 @@ _TAIL = [ctypes.c_float, _I, _I, _P]   # sm_scale, causal, dtype, stream
 _TAIL_BF16 = [ctypes.c_float, _I, _P]  # sm_scale, causal, stream
 # Each C entry point's arguments: pointers, then B, T, H, D, then strides
 # (the backward kernels take their inputs' 12 strides as one int64 array).
+_FWD_ARGS = [_P] * 5 + [_I] * 4 + [_L] * 12
 _DKV_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.POINTER(_L)] + [_L] * 6
 _DQ_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.POINTER(_L)] + [_L] * 3
 _SIGNATURES = {
-    "flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 12 + _TAIL,
+    "flash_fwd": _FWD_ARGS + _TAIL,
+    "flash_fwd_sm90": _FWD_ARGS + _TAIL_BF16,
     "flash_bwd_dkv": _DKV_ARGS + _TAIL,
     "flash_bwd_dq": _DQ_ARGS + _TAIL,
     "flash_bwd_dkv_sm90": _DKV_ARGS + _TAIL_BF16,
     "flash_bwd_dq_sm90": _DQ_ARGS + _TAIL_BF16,
 }
-# K2/K3 route by dtype -> the library (csrc/<name>.cu) that holds it
-_BWD_ROUTES = {torch.bfloat16: "sm90", torch.float32: "scalar"}
+# K1-K3 route by dtype -> the library (csrc/<name>.cu) that holds each
+_ROUTES = {torch.bfloat16: "sm90", torch.float32: "scalar"}
+_FWD_LIBS = {"sm90": "flash_fwd_sm90", "scalar": "flash_fwd"}
 _BWD_LIBS = {"sm90": "flash_bwd_sm90", "scalar": "flash_bwd"}
 
 
@@ -205,15 +209,16 @@ def _check_rows(q, *rows) -> None:
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _bwd_route(q) -> str:
-    """Which K2/K3 kernels a CUDA input of q's dtype launches: ``"sm90"``
-    (bf16: the tensor-core kernels of ``csrc/flash_bwd_sm90.cu``) or
-    ``"scalar"`` (fp32: ``csrc/flash_bwd.cu``, whose fp32 FMAs hold the
-    fp32 tolerance that TF32 tensor cores could not)."""
-    if q.dtype not in _BWD_ROUTES:
+def _route(q) -> str:
+    """Which kernels a CUDA input of q's dtype launches, K1 to K3 alike:
+    ``"sm90"`` (bf16: the tensor-core kernels of ``csrc/flash_fwd_sm90.cu``
+    and ``csrc/flash_bwd_sm90.cu``) or ``"scalar"`` (fp32:
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, whose fp32 FMAs hold
+    the fp32 tolerance that TF32 tensor cores could not)."""
+    if q.dtype not in _ROUTES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    return _BWD_ROUTES[q.dtype]
+    return _ROUTES[q.dtype]
 
 
 def _check_sm90_alignment(*xs) -> None:
@@ -223,7 +228,7 @@ def _check_sm90_alignment(*xs) -> None:
     for x in xs:
         if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
             raise ValueError(
-                f"flash_bwd_sm90 needs 16-byte aligned tensors with "
+                f"the sm90 flash kernels need 16-byte aligned tensors with "
                 f"(b, t, h) strides in multiples of 8 elements, got "
                 f"data_ptr % 16 = {x.data_ptr() % 16}, strides "
                 f"{tuple(x.stride())}")
@@ -241,17 +246,27 @@ def _launch(lib: str, q, fn, *args) -> None:
 
 
 def _launch_flash_fwd(q, k, v, causal: bool, sm_scale: float):
-    """Launch csrc/flash_fwd.cu on q's current stream; ``(out, lse)``."""
+    """Launch K1 on the route of q's dtype, on q's current stream;
+    ``(out, lse)``."""
     _check_kernel_inputs(q, k, v)
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T, 1), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q, _kernel_fn("flash_fwd", "flash_fwd"),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, T, H, D, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(sm_scale), int(causal), _KERNEL_DTYPES[q.dtype])
+    route = _route(q)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, T, H, D,
+            *(st for x in (q, k, v, out) for st in x.stride()[:3]),
+            float(sm_scale), int(causal)]
+    if route == "sm90":
+        _check_sm90_alignment(q, k, v, out)
+        name = "flash_fwd_sm90"
+    else:
+        name = "flash_fwd"
+        args.append(_KERNEL_DTYPES[q.dtype])
+    lib = _FWD_LIBS[route]
+    _launch(lib, q, _kernel_fn(lib, name), *args)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out, lse
 
 
@@ -268,7 +283,7 @@ def _launch_bwd(kernel: str, ins, outs, lse, delta, causal,
     (q, k, v, dO), ``outs`` (dk, dv) or (dq,)."""
     q = ins[0]
     B, T, H, D = q.shape
-    route = _bwd_route(q)
+    route = _route(q)
     args = [*(x.data_ptr() for x in ins), lse.data_ptr(), delta.data_ptr(),
             *(x.data_ptr() for x in outs), B, T, H, D, _in_strides(*ins),
             *(st for x in outs for st in x.stride()[:3]), float(sm_scale),
@@ -399,6 +414,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0   # K1 launches since the last reset
+flash_attention.launches_by_route = {"sm90": 0, "scalar": 0}  # K1, by route
 flash_bwd_dkv.launches = 0     # K2 launches since the last reset
 flash_bwd_dq.launches = 0      # K3 launches since the last reset
 flash_bwd_dkv.launches_by_route = {"sm90": 0, "scalar": 0}   # K2, by route

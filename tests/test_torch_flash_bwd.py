@@ -149,10 +149,10 @@ def test_sm90_rounding_points_hold_the_two_ulp_check(split, within):
 
 def test_bwd_route_by_dtype_and_sm90_alignment():
     x = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
-    assert tattn._bwd_route(x) == "sm90"
-    assert tattn._bwd_route(x.float()) == "scalar"
+    assert tattn._route(x) == "sm90"
+    assert tattn._route(x.float()) == "scalar"
     with pytest.raises(TypeError):
-        tattn._bwd_route(x.half())
+        tattn._route(x.half())
     tattn._check_sm90_alignment(x, x.transpose(1, 2))   # strides 64, 128
     padded = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="multiples of 8"):

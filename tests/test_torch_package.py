@@ -6,7 +6,8 @@
 * Entry points run on CUDA unless the caller asks for the CPU: without
   CUDA, ``device=None`` raises instead of carrying on on the CPU.
 * The CUDA kernels build from source with nvcc and have no fallback: no
-  nvcc, or a failed compile, raises with the compiler's output.
+  nvcc, or a failed compile, raises with the compiler's output. A build
+  is keyed by its source and the shared headers.
 """
 
 import ast
@@ -84,4 +85,18 @@ def test_library_name_tracks_sources():
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
     assert kernels.kernel_names() == ["flash_bwd", "flash_bwd_sm90",
-                                      "flash_fwd"]
+                                      "flash_fwd", "flash_fwd_sm90"]
+
+
+def test_library_name_tracks_the_shared_header(tmp_path, monkeypatch):
+    # the sm90 kernels include csrc/sm90.cuh: an edit there rebuilds them
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in kernels.SOURCE_DIR.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "SOURCE_DIR", src)
+    before = {n: kernels.library_path(n) for n in kernels.kernel_names()}
+    header = src / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernels.library_path(n) for n in kernels.kernel_names()}
+    assert all(before[n] != after[n] for n in before)
