@@ -51,6 +51,26 @@ Phases, one JSON line each, in order:
    on the card (K1-K3 on the scalar route) against the same
    call on the CPU (plain versions), relative to each leaf's largest
    magnitude.
+9. ``mesh_train``: the ``train`` phase's model, batch and remat through
+   ``make_train_step(cfg, pcfg, mesh=build_mesh(MeshConfig(1, 1, 1, 1),
+   device_type="cuda"))`` on a world-size-1 NCCL process group in this
+   process, with all four axes named (``attn="local"``, 2 microbatches):
+   every collective, the pipeline loop and the gradient reduction run on
+   the card. One warm-up step, then timed steps with the launch counts
+   reset just before and read just after (K1 2 x layers x microbatches
+   per step, K2 and K3 layers x microbatches, all on the sm90 route);
+   step time beside the ``train`` phase's, tokens/s, peak memory, and
+   losses that fall and stay within ``MESH_LOSS_TOL`` of the ``train``
+   phase's (same params, batch and steps). Then a ``profile`` line over
+   one step, with the count, host ms and device ms of every collective
+   in it.
+10. ``mesh_exact``: fp32, the same widths at 2 layers, batch 2 x 300
+   tokens, SGD: from the same params, the mesh step's loss and every
+   reduced gradient leaf against ``make_train_step``'s oracle step's,
+   and ``forward`` with ``attn="ring"`` and ``"ulysses"`` (sp named,
+   size 1) against ``"local"``, relative to each tensor's largest
+   magnitude, under ``MESH_EXACT_TOL``; K1-K3 on the scalar route,
+   launch counts asserted.
 
 Then the ``kernels`` line, the ``nvidia-smi`` card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without
@@ -63,6 +83,7 @@ import asyncio
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -71,7 +92,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private import kernels
 from ray_tpu_torch.models import decode
-from ray_tpu_torch.models.transformer import (ParallelConfig,
+from ray_tpu_torch.models.convert import shard_params
+from ray_tpu_torch.models.transformer import (SGD, ParallelConfig,
                                               TransformerConfig, forward,
                                               init_params, loss_fn,
                                               make_train_step, param_leaves)
@@ -82,6 +104,9 @@ from ray_tpu_torch.ops.attention import (_route, flash_attention,
                                          flash_bwd_dkv_reference,
                                          flash_bwd_dq, flash_bwd_dq_reference,
                                          flash_delta, flash_forward)
+from ray_tpu_torch.parallel.collectives import bind_mesh
+from ray_tpu_torch.parallel.launch import process_group
+from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from ray_tpu_torch.serve.decode_scheduler import (DecodeScheduler,
                                                   TorchSlotEngine)
 
@@ -150,6 +175,19 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 16, 1024, 6
 # train_exact: whole-model fp32 tolerance, relative to each leaf's
 # largest magnitude.
 EXACT_TOL = 1e-4
+# the mesh phases: every axis named on a 1 x 1 x 1 x 1 mesh, two
+# microbatches through the pipeline loop
+MESH_AXES = dict(dp="dp", pp="pp", sp="sp", tp="tp")
+MESH_MICROBATCHES = 2
+MESH_EXACT_LR = 0.1
+# mesh_train's losses against the train phase's, relative: the largest
+# gap measured over the 7 steps on an H100 80GB HBM3 is 4.4e-5; 1e-3 is
+# ~20x that and a quarter of a bf16 ulp (2^-8 relative).
+MESH_LOSS_TOL = 1e-3
+# mesh_exact, fp32, relative to each tensor's largest magnitude: ~10x
+# the largest error measured on an H100 80GB HBM3: loss 9.0e-8, reduced
+# gradients 2.4e-6, ring / Ulysses logits 2.0e-6.
+MESH_EXACT_TOL = {"loss": 1e-6, "grad": 3e-5, "attn": 2e-5}
 
 
 def emit(obj) -> None:
@@ -513,10 +551,40 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+# The port's collectives (ray_tpu_torch/parallel/collectives.py): a
+# profile records each autograd Function's forward under its class name
+# and its backward under that name + "Backward"; each span holds the
+# collective's copies and its c10d call.
+_COLLECTIVES = ("_Psum", "_AllGather", "_PsumScatter", "_AllToAll",
+                "_Ppermute", "_TpCopy", "_TpAllreduce")
+
+
+def _collectives(prof) -> dict:
+    """The collectives of a profile window: per span name its calls, its
+    host ms (the span's wall on the host, its children included) and its
+    device ms (the kernels and copies launched within it); the c10d
+    calls beneath them alike; and every device event of NCCL's own."""
+    names = set(_COLLECTIVES) | {n + "Backward" for n in _COLLECTIVES}
+    events = prof.key_averages()
+
+    def row(e):
+        return [e.count, e.cpu_time_total / 1e3, e.device_time_total / 1e3]
+
+    spans = {e.key: row(e) for e in events if e.key in names}
+    c10d = {e.key: row(e) for e in events if e.key.startswith("c10d::")}
+    return {"calls": sum(r[0] for r in spans.values()),
+            "host_ms": sum(r[1] for r in spans.values()),
+            "device_ms": sum(r[2] for r in spans.values()),
+            "by_span": spans, "c10d": c10d,
+            "nccl_device": [[e.key[:80], e.self_device_time_total / 1e3,
+                             e.count] for e in _device_events(prof)
+                            if "nccl" in e.key.lower()]}
+
+
 def _profile(fn, label: str) -> None:
     """Device time by kernel over one call of ``fn`` (after a warm-up
-    call): wall, summed kernel time, its split by kernel class and the
-    device's idle share."""
+    call): wall, summed kernel time, its split by kernel class, the
+    device's idle share, and the port's collectives where it ran any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -534,6 +602,7 @@ def _profile(fn, label: str) -> None:
     for e in events:
         cls = _kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
+    comm = _collectives(prof)
     emit({"phase": "profile", "window": label, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
@@ -542,7 +611,8 @@ def _profile(fn, label: str) -> None:
                   for e in top],
           "port_kernels": [[e.key[:80], e.self_device_time_total / 1e3,
                             e.count] for e in events
-                           if _kernel_class(e.key) == "port_kernels"]})
+                           if _kernel_class(e.key) == "port_kernels"],
+          **({"collectives": comm} if comm["calls"] else {})})
 
 
 def phase_profile(engine, prompt) -> None:
@@ -589,31 +659,64 @@ def _reset_launch_counts() -> None:
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
+def _assert_routes(want: dict, route: str) -> None:
+    """Every launch of K1 (``fwd``), K2 (``dkv``) and K3 (``dq``) since the
+    reset took ``route``, as many as ``want`` says."""
+    other = {"sm90": "scalar", "scalar": "sm90"}[route]
+    assert _routes_launched() == {
+        kernel: {route: want[f"flash_{name}"], other: 0}
+        for kernel, name in (("fwd", "fwd"), ("dkv", "bwd_dkv"),
+                             ("dq", "bwd_dq"))}, _routes_launched()
+
+
+def _rel_err(got, want) -> float:
+    """The largest error of ``got`` relative to ``want``'s largest
+    magnitude."""
+    want = want.detach().float()
+    return float((got.detach().float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
 def _train_batch(vocab, B, T, device, gen):
     seq = torch.randint(0, vocab, (B, T + 1), generator=gen, device=device)
     return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
 
 
-def phase_train() -> tuple[dict, dict]:
-    """The full-width train step; returns the launches of its timed
-    steps by kernel, and by kernel and route."""
+def _mesh():
+    return build_mesh(MeshConfig(1, 1, 1, 1),
+                      device_type=torch.device(DEVICE).type)
+
+
+def phase_train(mesh=None, oracle: dict | None = None) -> dict:
+    """The full-width train step: on one device (``mesh`` None, the
+    ``train`` phase), or through the mesh path on ``mesh`` with every
+    axis named and ``MESH_MICROBATCHES`` microbatches (``mesh_train``),
+    its losses held to ``oracle``, the one-device phase's result.
+    Returns the launches of the timed steps by kernel and by kernel and
+    route, the median step ms and the losses, warm-up step first."""
+    name = "train" if mesh is None else "mesh_train"
+    M = 1 if mesh is None else MESH_MICROBATCHES
     cfg = TransformerConfig(n_layers=TRAIN_LAYERS, dtype=torch.bfloat16,
                             **SERVE_WIDTHS)
-    pcfg = ParallelConfig(remat=True, remat_policy="full")
+    remat = dict(remat=True, remat_policy="full")
+    pcfg = (ParallelConfig(**remat) if mesh is None else ParallelConfig(
+        attn="local", num_microbatches=M, **remat, **MESH_AXES))
     B, T, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
     params = init_params(cfg, seed=SEED, device=DEVICE)
+    n_params = sum(p.numel() for p in param_leaves(params))
+    if mesh is not None:
+        params = shard_params(params, pcfg, mesh)
     batch = _train_batch(cfg.vocab, B, T, DEVICE,
                          torch.Generator(device=DEVICE).manual_seed(SEED))
-    step, optimizer = make_train_step(cfg, pcfg)
+    step, optimizer = make_train_step(cfg, pcfg, mesh=mesh)
     opt_state = optimizer.init(params)
-    n_params = sum(p.numel() for p in param_leaves(params))
     torch.cuda.reset_peak_memory_stats()
     # warm-up: cuBLAS handles, the optimizer's state, the first launches
     params, opt_state, loss0 = step(params, opt_state, batch)
     torch.cuda.synchronize()
 
     _reset_launch_counts()
-    losses, step_s = [], []
+    losses, step_s = [loss0], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, batch)
@@ -622,16 +725,16 @@ def phase_train() -> tuple[dict, dict]:
         losses.append(loss)
     launches = _launch_counts()
     routes = _routes_launched()
-    want = {"flash_fwd": 2 * L * TRAIN_STEPS,   # forward + remat recompute
-            "flash_bwd_dkv": L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS}
+    # K1 in the forward and the remat recompute of every layer, K2 and
+    # K3 once, for each microbatch
+    want = {"flash_fwd": 2 * L * M * TRAIN_STEPS,
+            "flash_bwd_dkv": L * M * TRAIN_STEPS,
+            "flash_bwd_dq": L * M * TRAIN_STEPS}
     assert launches == want, (launches, want)
-    # every K1, K2 and K3 launch of the bf16 step took the tensor-core
-    # route
-    assert routes == {kernel: {"sm90": want[f"flash_{name}"], "scalar": 0}
-                      for kernel, name in (("fwd", "fwd"),
-                                           ("dkv", "bwd_dkv"),
-                                           ("dq", "bwd_dq"))}, routes
-    first, last = loss0.item(), losses[-1].item()
+    # every launch of the bf16 step took the tensor-core route
+    _assert_routes(want, "sm90")
+    losses = [x.item() for x in losses]
+    first, last = losses[0], losses[-1]
     assert np.isfinite(first) and np.isfinite(last), (first, last)
     assert last < first, (first, last)
     # bench_model.py's accounting: 6 N per token, plus the causal
@@ -640,28 +743,44 @@ def phase_train() -> tuple[dict, dict]:
              + 12.0 * L * B * cfg.n_heads * T * T * cfg.head_dim / 2.0)
     step_ms = float(np.median(step_s)) * 1e3
     tflops = flops / (step_ms / 1e3) / 1e12
-    emit({"phase": "train", "layers": L, "batch": B, "seq": T,
-          "dtype": "bfloat16", "remat": pcfg.remat_policy,
-          "n_params": n_params, "steps": TRAIN_STEPS,
-          "step_ms": step_ms, "step_ms_all": [x * 1e3 for x in step_s],
-          "tokens_per_s": B * T / (step_ms / 1e3),
-          "achieved_tflops": tflops,
-          "peak_share": tflops * 1e12 / PEAK_FLOPS[torch.bfloat16],
-          "loss_first": first, "loss_last": last,
-          "losses": [x.item() for x in losses],
-          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches_per_step": {k: n // TRAIN_STEPS
-                                for k, n in launches.items()},
-          "launches_per_step_by_route": {
-              k: {r: n // TRAIN_STEPS for r, n in by.items()}
-              for k, by in routes.items()}})
+    row = {"phase": name, "layers": L, "batch": B, "seq": T,
+           "dtype": "bfloat16", "remat": pcfg.remat_policy,
+           "n_params": n_params, "steps": TRAIN_STEPS,
+           "step_ms": step_ms, "step_ms_all": [x * 1e3 for x in step_s],
+           "tokens_per_s": B * T / (step_ms / 1e3),
+           "achieved_tflops": tflops,
+           "peak_share": tflops * 1e12 / PEAK_FLOPS[torch.bfloat16],
+           "loss_first": first, "loss_last": last, "losses": losses[1:],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": {k: n // TRAIN_STEPS
+                                 for k, n in launches.items()},
+           "launches_per_step_by_route": {
+               k: {r: n // TRAIN_STEPS for r, n in by.items()}
+               for k, by in routes.items()}}
+    if mesh is not None:
+        # the same params, batch and steps as the oracle's: only the
+        # microbatch split (bf16 roundings in another order) parts them
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, oracle["losses"]))
+        row.update({"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                    "axes": MESH_AXES, "microbatches": M,
+                    "backend": torch.distributed.get_backend(),
+                    "oracle_step_ms": oracle["step_ms"],
+                    "step_ms_over_oracle": step_ms / oracle["step_ms"],
+                    "oracle_losses": oracle["losses"],
+                    "loss_rel_gap_max": loss_gap,
+                    "loss_tol": MESH_LOSS_TOL})
+    emit(row)
+    if mesh is not None:
+        assert loss_gap <= MESH_LOSS_TOL, (losses, oracle["losses"])
 
     def one_step():
         nonlocal params, opt_state
         params, opt_state, _ = step(params, opt_state, batch)
 
-    _profile(one_step, f"train_step B={B} T={T} remat=full")
-    return launches, routes
+    _profile(one_step, f"{name}_step B={B} T={T} M={M} remat=full")
+    return {"launches": launches, "routes": routes, "step_ms": step_ms,
+            "losses": losses}
 
 
 def phase_train_exact() -> None:
@@ -688,23 +807,86 @@ def phase_train_exact() -> None:
     loss, grads = loss_and_grads(DEVICE)
     torch.cuda.synchronize()
     launches = _launch_counts()
-    assert launches == {"flash_fwd": 2, "flash_bwd_dkv": 2,
-                        "flash_bwd_dq": 2}, launches
-    routes = _routes_launched()
-    assert routes == dict.fromkeys(("fwd", "dkv", "dq"),
-                                   {"sm90": 0, "scalar": 2}), routes
+    want = dict.fromkeys(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"), 2)
+    assert launches == want, launches
+    _assert_routes(want, "scalar")
     t0 = time.perf_counter()
     cpu_loss, cpu_grads = loss_and_grads("cpu")
     cpu_s = time.perf_counter() - t0
     loss_err = abs(loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
-    errs = [float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
-            for g, c in zip(grads, cpu_grads)]
+    errs = [_rel_err(g.cpu(), c) for g, c in zip(grads, cpu_grads)]
     emit({"phase": "train_exact", "layers": 2, "batch": 1, "seq": 300,
           "dtype": "float32", "loss": loss.item(), "cpu_loss": cpu_loss.item(),
           "loss_rel_err": loss_err, "grad_rel_err_max": max(errs),
           "grad_rel_err": errs, "tol": EXACT_TOL, "cpu_s": cpu_s,
           "launches": launches})
     assert loss_err <= EXACT_TOL and max(errs) <= EXACT_TOL, (loss_err, errs)
+
+
+def phase_mesh_exact() -> None:
+    """fp32: one SGD step through the mesh path against the oracle step
+    from the same params (the loss and every reduced gradient leaf), and
+    ring/Ulysses attention against local."""
+    cfg = TransformerConfig(n_layers=2, dtype=torch.float32, **SERVE_WIDTHS)
+    L, M = cfg.n_layers, MESH_MICROBATCHES
+    mesh = _mesh()
+    params0 = init_params(cfg, seed=SEED + 3, device=DEVICE)
+    batch = _train_batch(cfg.vocab, 2, 300, DEVICE,
+                         torch.Generator(device=DEVICE).manual_seed(SEED + 3))
+
+    def one_step(pcfg, mesh):
+        params = shard_params(params0, pcfg, mesh) if mesh else {
+            k: ({kk: p.clone() for kk, p in v.items()}
+                if isinstance(v, dict) else v.clone())
+            for k, v in params0.items()}
+        step, optimizer = make_train_step(cfg, pcfg, mesh=mesh,
+                                          optimizer=SGD(MESH_EXACT_LR))
+        state = optimizer.init(params)
+        _reset_launch_counts()
+        _, _, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        # the step leaves each leaf's gradient (reduced, on the mesh) in
+        # its .grad
+        return (loss.item(), [p.grad for p in param_leaves(params)],
+                _launch_counts())
+
+    pcfg = ParallelConfig(attn="local", num_microbatches=M, **MESH_AXES)
+    loss, grads, launches = one_step(pcfg, mesh)
+    want = {"flash_fwd": L * M, "flash_bwd_dkv": L * M,
+            "flash_bwd_dq": L * M}
+    assert launches == want, (launches, want)
+    _assert_routes(want, "scalar")
+    oracle_loss, oracle_grads, oracle_launches = one_step(
+        ParallelConfig(), None)
+    assert oracle_launches == dict.fromkeys(want, L), oracle_launches
+    loss_err = abs(loss - oracle_loss) / abs(oracle_loss)
+    grad_errs = [_rel_err(g, h) for g, h in zip(grads, oracle_grads)]
+
+    attn_errs, attn_launches = {}, {}
+    with torch.no_grad(), bind_mesh(mesh):
+        logits = {}
+        for attn in ("local", "ring", "ulysses"):
+            _reset_launch_counts()
+            logits[attn] = forward(params0, batch["tokens"], cfg,
+                                   ParallelConfig(sp="sp", attn=attn))
+            attn_launches[attn] = flash_attention.launches
+        for attn in ("ring", "ulysses"):
+            attn_errs[attn] = _rel_err(logits[attn], logits["local"])
+    # local attention is K1 on every layer; ring and Ulysses blocks are
+    # plain torch, as the reference's are plain XLA
+    assert attn_launches == {"local": L, "ring": 0, "ulysses": 0}, (
+        attn_launches)
+    emit({"phase": "mesh_exact", "layers": L, "batch": 2, "seq": 300,
+          "dtype": "float32", "microbatches": M, "optimizer": "sgd",
+          "lr": MESH_EXACT_LR, "loss": loss, "oracle_loss": oracle_loss,
+          "loss_rel_err": loss_err, "grad_rel_err_max": max(grad_errs),
+          "grad_rel_err": grad_errs, "attn_rel_err": attn_errs,
+          "tol": MESH_EXACT_TOL, "launches": launches,
+          "oracle_launches": oracle_launches,
+          "forward_k1_launches": attn_launches})
+    assert loss_err <= MESH_EXACT_TOL["loss"], loss_err
+    assert max(grad_errs) <= MESH_EXACT_TOL["grad"], grad_errs
+    assert max(attn_errs.values()) <= MESH_EXACT_TOL["attn"], attn_errs
 
 
 def main() -> int:
@@ -720,8 +902,14 @@ def main() -> int:
     serve_launches, serve_routes = phase_serve()
     phase_exact()
     bwd = phase_kernel_bwd()
-    train_launches, train_routes = phase_train()
+    train = phase_train()
     phase_train_exact()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, \
+            process_group(0, 1, device=DEVICE,
+                          init_method=f"file://{tmp}/store", timeout_s=600):
+        mesh_launches = phase_train(_mesh(), oracle=train)["launches"]
+        phase_mesh_exact()
+    train_launches, train_routes = train["launches"], train["routes"]
     # K2 and K3 at the training shape on each route: bf16 (the train
     # path) on sm90, fp32 on the scalar kernels
     by_route = {"sm90": bwd[TRAIN_CASE], "scalar": bwd[TRAIN_CASE_FP32]}
@@ -752,7 +940,8 @@ def main() -> int:
          "replaces": "ray_tpu/ops/attention.py:57",
          "launches": serve_launches,
          "launches_by_path": {"serve": serve_launches,
-                              "train": train_launches["flash_fwd"]},
+                              "train": train_launches["flash_fwd"],
+                              "mesh_train": mesh_launches["flash_fwd"]},
          # over both paths
          "launches_by_route": {r: serve_routes[r] + train_routes["fwd"][r]
                                for r in serve_routes},
@@ -766,7 +955,8 @@ def main() -> int:
            "replaces": f"ray_tpu/ops/attention.py:{line}",
            "launches": train_launches[f"flash_bwd_{kernel}"],
            "launches_by_path": {
-               "train": train_launches[f"flash_bwd_{kernel}"]},
+               "train": train_launches[f"flash_bwd_{kernel}"],
+               "mesh_train": mesh_launches[f"flash_bwd_{kernel}"]},
            "launches_by_route": train_routes[kernel],
            **bwd_numbers(by_route["sm90"], kernel, outs),
            "routes": {route: {"source": BWD_SOURCES[route],

@@ -9,7 +9,7 @@ kernels (``csrc/``) built with nvcc at first use, with no fallback.
 """
 
 from ray_tpu_torch._private.device import resolve_device  # noqa: F401
-from ray_tpu_torch.entry import entry  # noqa: F401
+from ray_tpu_torch.entry import dryrun_multichip, entry  # noqa: F401
 from ray_tpu_torch.exceptions import (  # noqa: F401
     RayTpuError,
     ServeOverloadedError,

@@ -56,7 +56,7 @@ def _prompt_through_stack(params, tokens, ck, cv, cfg: TransformerConfig):
     positions = torch.arange(T0, device=tokens.device)
     x = params["embed"][tokens]
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = layer_params(params["layers"], i)
         h = rmsnorm(x, lp["attn_norm"])
         q, k, v = qkv(lp, h, cfg.head_dim)
         q = apply_rotary(q, cos, sin, positions=positions)
@@ -94,7 +94,7 @@ def _decode_layers(params, x, cache, cfg, rotate, write, valid):
     B = x.shape[0]
     sm_scale = cfg.head_dim ** -0.5
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = layer_params(params["layers"], i)
         h = rmsnorm(x, lp["attn_norm"])
         q, k, v = qkv(lp, h, cfg.head_dim)
         q, k = rotate(q), rotate(k)

@@ -1,12 +1,23 @@
-"""Decoder-only transformer (Llama-style), oracle mode.
+"""Decoder-only transformer (Llama-style) over a dp/pp/sp/tp mesh.
 
-Counterpart of ``ray_tpu/models/transformer.py`` on one device: the
-same config, the same parameter dict (JAX key names, layer weights
-stacked on a leading ``[L, ...]`` dim, so params convert one to one) and
-the same math, with a Python loop over layers in place of ``lax.scan``,
+Counterpart of ``ray_tpu/models/transformer.py``: the same config, the
+same parameter dict (JAX key names, layer weights stacked on a leading
+``[L, ...]`` dim, so params convert one to one) and the same math, with
+a Python loop over layers in place of ``lax.scan``,
 ``torch.utils.checkpoint`` in place of ``jax.checkpoint``, and
-``torch.optim.AdamW`` behind optax's ``init`` in place of
-``optax.adamw``. Parallel meshes are a later slice.
+``torch.optim`` behind optax's ``init`` in place of ``optax``.
+
+One model definition, two execution modes sharing every line of math:
+
+* **oracle**: ``ParallelConfig()`` with all axes ``None``: plain
+  single-device forward (the differential-test reference).
+* **SPMD**: per rank, on this rank's shards, with a mesh's axis names
+  bound (``make_train_step(mesh=...)``, or ``parallel.shard_map``):
+  Megatron-style tensor parallelism on ``tp`` (column-parallel
+  QKV/gate/up, row-parallel O/down + ``tp_allreduce``; backward fixed up
+  by ``tp_copy``), ring or Ulysses attention on ``sp``, a GPipe
+  microbatch pipeline on ``pp`` (``parallel.pipeline_spmd``), and
+  gradient means over the data axes (``dp``/``sp``).
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -24,6 +36,14 @@ from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
+from ray_tpu_torch.parallel.collectives import (axis_index, axis_size,
+                                                bind_mesh, pmean, psum,
+                                                tp_allreduce, tp_copy,
+                                                with_current_mesh)
+from ray_tpu_torch.parallel.pipeline import pipeline_spmd
+from ray_tpu_torch.parallel.ring_attention import ring_attention
+from ray_tpu_torch.parallel.sharding import P, local_shard
+from ray_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,42 +77,36 @@ REMAT_POLICIES = {
 }
 
 
+ATTN_IMPLS = ("auto", "local", "ring", "ulysses")
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh axis names and the layer options of the JAX ParallelConfig.
-    The port runs the oracle only: every axis must be ``None`` until
-    ``parallel/`` is ported, so ``attn`` is ``"auto"`` or ``"local"``
-    (both the flash kernel) and ``num_microbatches`` (pipeline only)
-    must be ``None``. ``remat`` checkpoints every layer under
-    ``remat_policy``."""
+    """Mesh axis names (None = that parallelism disabled) and the layer
+    options of the JAX ParallelConfig. ``attn`` ``"ring"`` or
+    ``"ulysses"`` without an sp axis runs local flash attention, as the
+    reference's ``_attend`` does; ``"auto"`` is ring with sp, else local.
+    ``num_microbatches`` is read by the pipeline only (pp). ``remat``
+    checkpoints every layer under ``remat_policy``."""
     dp: Optional[str] = None
     pp: Optional[str] = None
     sp: Optional[str] = None
     tp: Optional[str] = None
-    attn: str = "auto"          # auto | local (ring | ulysses need sp)
+    attn: str = "auto"          # auto | local | ring | ulysses
     remat: bool = False
     remat_policy: str = "full"  # full | dots | dots_no_batch
     num_microbatches: Optional[int] = None
 
     def __post_init__(self):
-        axes = {a: getattr(self, a) for a in ("dp", "pp", "sp", "tp")
-                if getattr(self, a) is not None}
-        if axes:
-            raise NotImplementedError(
-                f"parallel axes {axes} are not ported yet; the port runs "
-                "the single-device oracle only")
-        if self.attn in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn={self.attn!r} needs an sp axis, which is not "
-                "ported yet")
-        if self.num_microbatches is not None:
-            raise NotImplementedError(
-                "num_microbatches needs a pp axis, which is not ported yet")
-        if self.attn not in ("auto", "local"):
-            raise ValueError(f"unknown attn impl {self.attn!r}")
+        if self.attn not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn impl {self.attn!r}; expected "
+                             f"one of {ATTN_IMPLS}")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              f"expected one of {sorted(REMAT_POLICIES)}")
+
+    def data_axes(self):
+        return tuple(a for a in (self.dp, self.sp) if a)
 
 
 def param_shapes(cfg: TransformerConfig) -> dict:
@@ -107,6 +121,27 @@ def param_shapes(cfg: TransformerConfig) -> dict:
             "w_gate": (L, D, F_), "w_up": (L, D, F_), "w_down": (L, F_, D),
         },
         "final_norm": (D,),
+    }
+
+
+def param_specs(pcfg: ParallelConfig) -> dict:
+    """PartitionSpec dict matching ``init_params`` output: layer weights
+    split over pp on the stacked dim and over tp on the head/ffn dim."""
+    pp, tp = pcfg.pp, pcfg.tp
+    return {
+        "embed": P(None, None),
+        "layers": {
+            "attn_norm": P(pp, None),
+            "wq": P(pp, None, tp),
+            "wk": P(pp, None, tp),
+            "wv": P(pp, None, tp),
+            "wo": P(pp, tp, None),
+            "mlp_norm": P(pp, None),
+            "w_gate": P(pp, None, tp),
+            "w_up": P(pp, None, tp),
+            "w_down": P(pp, tp, None),
+        },
+        "final_norm": P(None),
     }
 
 
@@ -133,17 +168,24 @@ def init_params(cfg: TransformerConfig, *, seed: int, device=None) -> dict:
             "final_norm": ones(shapes["final_norm"])}
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked layer weights."""
-    return {name: w[i] for name, w in params["layers"].items()}
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked layer weights ``layers``
+    (``params["layers"]``, or a pipeline stage's block of it)."""
+    return {name: w[i] for name, w in layers.items()}
 
 
-def mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
-    """Residual SwiGLU block; gate and up in fp32, down in x's dtype."""
+def mlp(lp: dict, x: torch.Tensor, tp: Optional[str] = None) -> torch.Tensor:
+    """Residual SwiGLU block; gate and up in fp32, down in x's dtype.
+    With ``tp``, gate/up are column-parallel and down row-parallel."""
     h = rmsnorm(x, lp["mlp_norm"])
+    if tp:
+        h = tp_copy(h, tp)
     g = F.silu((h @ lp["w_gate"]).float())
     u = (h @ lp["w_up"]).float()
-    return x + ((g * u).to(x.dtype) @ lp["w_down"]).to(x.dtype)
+    d = (g * u).to(x.dtype) @ lp["w_down"]
+    if tp:
+        d = tp_allreduce(d, tp)
+    return x + d.to(x.dtype)
 
 
 def qkv(lp: dict, h: torch.Tensor, head_dim: int):
@@ -157,17 +199,34 @@ def unembed(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     return (x @ embed.T.to(x.dtype)).float()
 
 
+def _attend(q, k, v, pcfg: ParallelConfig):
+    impl = pcfg.attn
+    if impl == "auto":
+        impl = "ring" if pcfg.sp else "local"
+    if impl == "local" or not pcfg.sp:
+        # K1 forward, K2/K3 backward on CUDA; the plain path on the CPU
+        return flash_attention(q, k, v, causal=True)
+    if impl == "ring":
+        return ring_attention(q, k, v, axis=pcfg.sp, causal=True)
+    return ulysses_attention(q, k, v, axis=pcfg.sp, causal=True)
+
+
 def _layer(lp: dict, x: torch.Tensor, cos, sin, positions,
-           cfg: TransformerConfig) -> torch.Tensor:
-    """One block: attention then SwiGLU, each residual. x: [B, T, D]."""
+           cfg: TransformerConfig, pcfg: ParallelConfig) -> torch.Tensor:
+    """One block on local shards: attention then SwiGLU, each residual.
+    x: [B_l, T_l, D] (tp-replicated); H/tp heads on a tp rank."""
     B, T = x.shape[:2]
     h = rmsnorm(x, lp["attn_norm"])
+    if pcfg.tp:
+        h = tp_copy(h, pcfg.tp)
     q, k, v = qkv(lp, h, cfg.head_dim)
     q = apply_rotary(q, cos, sin, positions=positions)
     k = apply_rotary(k, cos, sin, positions=positions)
-    o = flash_attention(q, k, v, causal=True).reshape(B, T, -1)
-    x = x + (o @ lp["wo"]).to(x.dtype)
-    return mlp(lp, x)
+    o = _attend(q, k, v, pcfg).reshape(B, T, -1) @ lp["wo"]  # row-parallel
+    if pcfg.tp:
+        o = tp_allreduce(o, pcfg.tp)
+    x = x + o.to(x.dtype)
+    return mlp(lp, x, pcfg.tp)
 
 
 def _save_policy(saved: frozenset):
@@ -178,27 +237,51 @@ def _save_policy(saved: frozenset):
 
 
 def _layer_fn(pcfg: ParallelConfig):
-    """``_layer``, checkpointed as ``pcfg`` asks when autograd records."""
+    """``_layer`` for ``pcfg``, checkpointed as it asks when autograd
+    records. Every rank of a group recomputes the same layers in the
+    same order, so the recompute's collectives match across ranks."""
+    layer = functools.partial(_layer, pcfg=pcfg)
     if not (pcfg.remat and torch.is_grad_enabled()):
-        return _layer
+        return layer
     saved = REMAT_POLICIES[pcfg.remat_policy]
     kwargs = {} if saved is None else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _save_policy(saved))}
-    return functools.partial(checkpoint, _layer, use_reentrant=False,
-                             **kwargs)
+    # the recompute runs inside the backward, on autograd's own thread
+    # for CUDA tensors: carry the mesh its collectives resolve against
+    return functools.partial(checkpoint, with_current_mesh(layer),
+                             use_reentrant=False, **kwargs)
+
+
+def _stack_fn(cfg, pcfg, cos, sin, positions):
+    """Run the (locally held) layer stack over one activation."""
+    layer = _layer_fn(pcfg)
+
+    def run(layers, x):
+        for i in range(layers["wq"].shape[0]):
+            x = layer(layer_params(layers, i), x, cos, sin, positions, cfg)
+        return x
+    return run
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             pcfg: ParallelConfig = ParallelConfig()) -> torch.Tensor:
-    """tokens [B, T] (integer) -> logits [B, T, V] (fp32)."""
+    """tokens [B_l, T_l] (integer) -> logits [B_l, T_l, V] (fp32).
+
+    Call directly for the oracle, or per rank with a mesh bound (on this
+    rank's param shards) for SPMD."""
     T = tokens.shape[1]
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq,
                                 theta=cfg.rope_theta, device=tokens.device)
     positions = torch.arange(T, device=tokens.device)
-    layer = _layer_fn(pcfg)
+    if pcfg.sp:
+        positions = axis_index(pcfg.sp) * T + positions
     x = params["embed"][tokens]
-    for i in range(cfg.n_layers):
-        x = layer(layer_params(params, i), x, cos, sin, positions, cfg)
+    stack = _stack_fn(cfg, pcfg, cos, sin, positions)
+    if pcfg.pp:
+        x = pipeline_spmd(stack, params["layers"], x, axis=pcfg.pp,
+                          num_microbatches=pcfg.num_microbatches)
+    else:
+        x = stack(params["layers"], x)
     x = rmsnorm(x, params["final_norm"])
     return unembed(x, params["embed"])
 
@@ -206,7 +289,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
 def loss_fn(params: dict, batch: dict, cfg: TransformerConfig,
             pcfg: ParallelConfig = ParallelConfig()) -> torch.Tensor:
     """Mean next-token cross-entropy over fp32 logits; batch holds
-    ``tokens`` and ``targets``, both [B, T] integer."""
+    ``tokens`` and ``targets``, both [B, T] integer. Per rank, the LOCAL
+    mean; the train step reduces it over the data axes."""
     logits = forward(params, batch["tokens"], cfg, pcfg)
     return F.cross_entropy(logits.flatten(0, 1),
                            batch["targets"].flatten().long())
@@ -218,19 +302,36 @@ def param_leaves(params: dict) -> list:
             for leaf in (param_leaves(v) if isinstance(v, dict) else [v])]
 
 
+def _trainable(params: dict) -> list:
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return leaves
+
+
+@dataclasses.dataclass(frozen=True)
 class AdamW:
-    """``optax.adamw(3e-4)`` as ``make_train_step`` takes it:
+    """``optax.adamw(lr)`` as ``make_train_step`` takes it:
     ``init(params)`` marks the param tensors as trainable and returns the
     optimizer state, a ``torch.optim.AdamW`` over them with optax's
     defaults (weight decay 1e-4, where torch's own default is 1e-2). Its
     moments are kept in the params' dtype, as optax keeps them."""
+    lr: float = 3e-4
 
     def init(self, params: dict) -> torch.optim.Optimizer:
-        leaves = param_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        return torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=1e-4)
+        return torch.optim.AdamW(_trainable(params), lr=self.lr,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.sgd(lr)`` as ``make_train_step`` takes it: plain gradient
+    descent, no momentum."""
+    lr: float
+
+    def init(self, params: dict) -> torch.optim.Optimizer:
+        return torch.optim.SGD(_trainable(params), lr=self.lr)
 
 
 def make_train_step(cfg: TransformerConfig,
@@ -242,18 +343,62 @@ def make_train_step(cfg: TransformerConfig,
     returns them, and the loss as a 0-d device tensor (no host sync).
     ``optimizer`` is any object whose ``init(params)`` returns a
     ``torch.optim.Optimizer`` over ``param_leaves(params)`` (default
-    ``AdamW()``, optax's ``adamw(3e-4)``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...) needs parallel/, which is not "
-            "ported yet; the port trains on one device")
-    optimizer = optimizer or AdamW()
+    ``AdamW()``, optax's ``adamw(3e-4)``).
 
-    def step(params, opt_state, batch):
+    With ``mesh`` (a ``DeviceMesh`` from ``parallel.build_mesh``), the
+    step is this rank's body of the reference's shard_map'd step: params
+    are this rank's shards by ``param_specs(pcfg)``
+    (``convert.shard_params``), so the optimizer state built over them
+    is sharded alike; ``batch`` is the full global batch, of which the
+    step takes this rank's block by ``P(dp, sp)``; gradients are reduced
+    leaf by leaf as the reference's are, and the loss returned is the
+    global mean, the same on every rank."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh from "
+                        f"parallel.build_mesh, got {type(mesh).__name__}")
+    optimizer = optimizer or AdamW()
+    specs = param_leaves(param_specs(pcfg))
+    batch_spec = P(pcfg.dp, pcfg.sp)
+
+    def reduce_grads(params):
+        # Gradient calculus (psum transposes to psum, so per-rank grads
+        # equal d(sum over ranks of loss_r)/d leaf):
+        # * tp: the layer uses tp_copy/tp_allreduce (Megatron f/g with
+        #   JAX's transposes), so every tp rank's grads are already the
+        #   true single-counted gradient: no reduction.
+        # * pp: the pipeline's output broadcast sums the n_pp redundant
+        #   loss copies' cotangents into every path, so divide by n_pp;
+        #   pp-replicated leaves (embed, final_norm) then need their
+        #   per-rank halves psum'd over pp.
+        # * dp/sp: distinct data shards: pmean.
+        n_pp = axis_size(pcfg.pp) if pcfg.pp else 1
+        for p, spec in zip(param_leaves(params), specs):
+            g = p.grad / n_pp if pcfg.pp else p.grad
+            if pcfg.pp and pcfg.pp not in spec:
+                g = psum(g, pcfg.pp)
+            for ax in pcfg.data_axes():
+                g = pmean(g, ax)
+            p.grad = g
+
+    def local_step(params, opt_state, batch):
         opt_state.zero_grad(set_to_none=True)
         loss = loss_fn(params, batch, cfg, pcfg)
         loss.backward()
+        loss = loss.detach()
+        with torch.no_grad():
+            reduce_grads(params)
+            for ax in pcfg.data_axes():
+                loss = pmean(loss, ax)
         opt_state.step()
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
+
+    if mesh is None:
+        return local_step, optimizer
+
+    def step(params, opt_state, batch):
+        with bind_mesh(mesh):
+            local = {k: local_shard(x, batch_spec, mesh)
+                     for k, x in batch.items()}
+            return local_step(params, opt_state, local)
 
     return step, optimizer

@@ -82,8 +82,23 @@ def test_init_params_layout_matches_jax():
 
 
 def test_parallel_axes_not_ported():
-    with pytest.raises(NotImplementedError, match="tp"):
-        ttfm.ParallelConfig(tp="tp")
+    # parallel/ is ported: ParallelConfig takes every axis, as JAX's does,
+    # and shards the params as JAX's param_specs do
+    assert ttfm.ParallelConfig(tp="tp").tp == "tp"
+    for axes in ({"tp": "tp"}, {"dp": "dp", "pp": "pp", "sp": "sp",
+                                "tp": "tp"}):
+        pcfg = ttfm.ParallelConfig(num_microbatches=2, **axes)
+        jpcfg = jtfm.ParallelConfig(num_microbatches=2, **axes)
+        assert pcfg.data_axes() == jpcfg.data_axes()
+        want = jax.tree_util.tree_leaves_with_path(
+            jtfm.param_specs(jpcfg),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        got = ttfm.param_specs(pcfg)
+        for path, spec in want:
+            node = got
+            for key in path:
+                node = node[key.key]
+            assert tuple(node) == tuple(spec)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))

@@ -2,7 +2,8 @@
 
 * ``ray_tpu_torch``, ``chip_smoke.py`` and ``bwd_fault_check.py`` import
   neither jax nor the JAX package (the port keeps its own copy of what
-  it needs).
+  it needs); the port starts processes with the ``spawn`` method only,
+  in ``parallel/launch.py``.
 * Entry points run on CUDA unless the caller asks for the CPU: without
   CUDA, ``device=None`` raises instead of carrying on on the CPU.
 * The CUDA kernels build from source with nvcc and have no fallback: no
@@ -40,6 +41,32 @@ def test_port_imports_neither_jax_nor_ray_tpu():
            for mod in _imported_roots(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "ray_tpu")]
     assert bad == []
+
+
+PARALLEL_MODULES = ("__init__", "collectives", "launch", "mesh", "moe",
+                    "pipeline", "ring_attention", "sharding", "ulysses")
+
+
+def _start_methods(path: Path):
+    """String arguments of every multiprocessing get_context /
+    set_start_method call in ``path``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", getattr(node.func, "id", None))
+                in ("get_context", "set_start_method")):
+            yield from (a.value for a in node.args
+                        if isinstance(a, ast.Constant))
+
+
+def test_parallel_modules_import_no_jax_and_only_spawn():
+    files = sorted((PKG / "parallel").glob("*.py"))
+    assert [f.stem for f in files] == list(PARALLEL_MODULES)
+    bad = [(f.name, mod) for f in files for mod in _imported_roots(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "ray_tpu")]
+    assert bad == []
+    methods = [(f.name, m) for f in sorted(PKG.rglob("*.py"))
+               + [REPO / "chip_smoke.py"] for m in _start_methods(f)]
+    assert methods == [("launch.py", "spawn")]
 
 
 def test_resolve_device_refuses_cpu_fallback(monkeypatch):

@@ -136,13 +136,18 @@ def test_remat_policies_agree_and_differ_in_recompute():
     assert flops["dots"] == flops[None]
     with pytest.raises(ValueError, match="remat_policy"):
         ttfm.ParallelConfig(remat=True, remat_policy="offload")
-    with pytest.raises(NotImplementedError, match="sp axis"):
-        ttfm.ParallelConfig(attn="ring")
+    # without an sp axis, attn "ring"/"ulysses" run local flash attention
+    # (the reference's _attend), and num_microbatches is unused without pp
+    local = _loss_and_grads(tparams, tbatch, tcfg,
+                            ttfm.ParallelConfig(attn="local"))
+    for pcfg in (ttfm.ParallelConfig(attn="ring"),
+                 ttfm.ParallelConfig(attn="ulysses", num_microbatches=4)):
+        loss, grads = _loss_and_grads(tparams, tbatch, tcfg, pcfg)
+        assert loss.item() == local[0].item()
+        assert all(torch.equal(g, g0) for g, g0 in zip(grads, local[1]))
     with pytest.raises(ValueError, match="attn"):
         ttfm.ParallelConfig(attn="sparse")
     assert ttfm.ParallelConfig(attn="local").remat is False
-    with pytest.raises(NotImplementedError, match="pp axis"):
-        ttfm.ParallelConfig(num_microbatches=4)
 
 
 def test_optimizer_matches_optax_adamw_on_the_same_grads():
@@ -186,5 +191,5 @@ def test_train_step_losses_match_jax_train_step():
         # Adam's first update is ~lr * sign(g), so the params after a step
         # are a poor check where g ~ 0; the loss is not
         assert abs(float(loss) - float(jloss)) <= MODEL_TOL * float(jloss)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttfm.make_train_step(tcfg, mesh=object())
