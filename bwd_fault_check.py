@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Show that ``chip_smoke.py``'s K1 and K2/K3 checks reject a wrong kernel.
+"""Show that ``chip_smoke.py``'s K1, K2/K3 and scheduler checks reject a
+wrong kernel.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -20,6 +21,9 @@ looser one:
   ``csrc/flash_bwd.cu`` (the scalar route, run in fp32): the
   ``kernel_bwd`` phase under ``chip_smoke.BWD_TOL``, and under the 1e-1
   of ``tests/test_ops.py``.
+* ``sched_scan`` faults, in ``csrc/sched_scan.cu``: the whole
+  ``scheduler`` phase, whose decisions must equal ``scan_reference``'s
+  and ``HostBackend``'s exactly (there is no looser check).
 
 A ``control`` copy with no fault must pass every check. At most six
 copies run at once. Prints one JSON line per copy (each check's verdicts
@@ -39,13 +43,16 @@ K1_SM90 = "ray_tpu_torch/csrc/flash_fwd_sm90.cu"
 SM90 = "ray_tpu_torch/csrc/flash_bwd_sm90.cu"
 SM90_HELPERS = "ray_tpu_torch/csrc/sm90.cuh"
 SCALAR = "ray_tpu_torch/csrc/flash_bwd.cu"
-# check -> chip_smoke's phase and case: K1 in bf16, K2/K3 on each route
+SCHED = "ray_tpu_torch/csrc/sched_scan.cu"
+# check -> chip_smoke's phase and case: K1 in bf16, K2/K3 on each route,
+# the scheduler phase whole
 CHECKS = {"k1": ("kernel", "TRAIN_CASE"),
           "bf16": ("kernel_bwd", "TRAIN_CASE"),
-          "fp32": ("kernel_bwd", "TRAIN_CASE_FP32")}
+          "fp32": ("kernel_bwd", "TRAIN_CASE_FP32"),
+          "sched": ("scheduler", None)}
 # fault -> (source, its text, the replacement), the checks it runs
 FAULTS = {
-    "control": (None, ("k1", "bf16", "fp32")),
+    "control": (None, ("k1", "bf16", "fp32", "sched")),
     # K1's causal k-loop ends one k-tile early: the diagonal tile is lost
     "k1_causal_end_one_tile_early": ((
         K1_SM90, "const int n_k = (k_end + kBlock - 1) / kBlock;",
@@ -71,10 +78,10 @@ FAULTS = {
         "const int qt0 = in.causal ? kt + 1 : 0;"), ("bf16",)),
     # K2 writes zeros for the second k-tile's dK
     "k2_zero_dk_tile": ((
-        SM90, "store_acc(dk_acc[x], dkh, sdk.t, k0, x, seq);",
+        SM90, "store_acc<D>(dk_acc[x], dkh, sdk.t, k0, x, seq);",
         "if (blockIdx.y == 1)\n      for (int i = 0; i < 32; ++i) "
         "dk_acc[x][i] = 0.f;\n    "
-        "store_acc(dk_acc[x], dkh, sdk.t, k0, x, seq);"), ("bf16",)),
+        "store_acc<D>(dk_acc[x], dkh, sdk.t, k0, x, seq);"), ("bf16",)),
     # K3 stops before the k-tile on the causal diagonal
     "k3_causal_end_one_tile_early": ((
         SM90, "const int n_k = in.causal ? qt + 1 :",
@@ -97,6 +104,24 @@ FAULTS = {
         SCALAR,
         "const int k_end = in.causal ? min(seq, q0 + kBlock) : seq;",
         "const int k_end = in.causal ? min(seq, q0) : seq;"), ("fp32",)),
+    # utilisation as used / totals, not used * (1 / totals): one rounding
+    # apart, which moves a ceil at the spread threshold
+    "sched_divide_not_reciprocal": ((
+        SCHED, "ceilf(__fmul_rn(__fmul_rn(used, inv[n * rb + r]),",
+        "ceilf(__fmul_rn(__fdiv_rn(used, tot),"), ("sched",)),
+    # a grant does not take its demand from the chosen node
+    "sched_no_consumption": ((
+        SCHED,
+        "avail[action * rb + r] = __fsub_rn(avail[action * rb + r], d[r]);",
+        "(void)r;"), ("sched",)),
+    # the frontier gate ignores dependencies
+    "sched_no_frontier_gate": ((
+        SCHED, "const bool blocked = chosen == local_idx && !dep_ready[slot];",
+        "const bool blocked = false;"), ("sched",)),
+    # the key drops the locality term
+    "sched_key_without_locality": ((
+        SCHED, "const int anti = (1 << 20) - min(loc[n] >> 10, kLocMax);",
+        "const int anti = 1 << 20;"), ("sched",)),
 }
 WAVE = 6   # copies at once: each holds a few GB of reference tensors
 
@@ -106,11 +131,20 @@ torch.backends.cuda.matmul.allow_tf32 = False
 runs = {}
 for check in sys.argv[1:]:
     phase, case = json.loads(check)
-    runs.setdefault(phase, []).append(getattr(cs, case))
+    runs.setdefault(phase, []).append(getattr(cs, case) if case else None)
 # phase -> (its cases, its run, its tolerance, the looser one)
 loose = {"kernel": {"o": (3e-2, 3e-2), "lse": (1e-2, 1e-2)},
          "kernel_bwd": (1e-1, 1e-1)}
 for phase, cases in runs.items():
+    if phase == "scheduler":   # exact decisions: no looser check
+        print("RUN tol", flush=True)
+        try:
+            cs.phase_scheduler()
+            result = {"tol": "passed"}
+        except AssertionError:
+            result = {"tol": "rejected"}
+        print("RESULT " + json.dumps({phase: result}), flush=True)
+        continue
     if phase == "kernel":
         cs.KERNEL_CASES, run, tol = cases, cs.phase_kernel, "TOL"
     else:

@@ -13,7 +13,8 @@ Phases, one JSON line each, in order:
 3. ``kernel``: K1 through its wrapper against its plain version
    ``flash_attention_reference`` on the card, O and lse, at the serving
    prefill shape, the training shape and around them (ragged T,
-   non-causal, head_dim 128); bf16 runs the tensor-core route
+   non-causal, head_dim 128, the entry's head_dim 32, 16 and the dry
+   run's 8, which the kernels pad to their tile width); bf16 runs the tensor-core route
    (``csrc/flash_fwd_sm90.cu``) and is held to two ulps on O, fp32 the
    scalar route (``csrc/flash_fwd.cu``); each row names its route and
    its worst share of the allowance. Kernel and plain timed with CUDA
@@ -33,7 +34,7 @@ Phases, one JSON line each, in order:
 6. ``kernel_bwd``: K2 and K3 through their wrappers against
    ``flash_backward_reference`` on the card, with O and lse from K1, at
    the training shape and around it (ragged T, non-causal, head_dim
-   128, the prefill width); bf16 runs the tensor-core route
+   128, 32, 16 and 8, the prefill width); bf16 runs the tensor-core route
    (``csrc/flash_bwd_sm90.cu``) and is held to two ulps, fp32 the scalar
    route (``csrc/flash_bwd.cu``); each row names its route. Each kernel
    and its plain version timed with CUDA events, the backward of
@@ -71,6 +72,28 @@ Phases, one JSON line each, in order:
    size 1) against ``"local"``, relative to each tensor's largest
    magnitude, under ``MESH_EXACT_TOL``; K1-K3 on the scalar route,
    launch counts asserted.
+11. ``entry``: ``ray_tpu_torch.entry()`` (the reference's entry config,
+   head_dim 32) on the card: [4, 128, 512] finite logits, with K1's
+   launch counts reset just before and read just after (once per layer,
+   all on the sm90 route); the CPU call's params and tokens carried to
+   the card, logits against the CPU's within ``ENTRY_TOL``; and K1 at
+   the entry's attention shape against the plain ``attention`` in fp32
+   on the same inputs, within K1's bf16 tolerance.
+12. ``scheduler``: the ``cuda_batched`` backend (``csrc/sched_scan.cu``)
+   against ``scan_reference`` on CPU tensors and the port's
+   ``HostBackend``, decisions compared exactly: the cases of
+   tests/test_scheduler_diff.py and its 12-tick sequence (row uploads
+   equal to the CPU backend's), and the reference's two quirks (the
+   kernel follows ``scan_reference``, not the host). Then the `sched`
+   configuration (``sched_config``, a synthetic stress size): a first
+   tick of 100,000 pending over 256 nodes and three drain waves (no
+   arrivals, availability drawn anew before each), the scan's launches
+   counted over them and each tick's scan held to ``scan_reference``; a
+   10,000 pending tick held to ``HostBackend``; kernel ms (first and
+   incremental tick), tick wall ms (inputs copied outside the timed
+   window), µs per task, rows uploaded, the bound over the real tasks,
+   nodes and kinds, and a cProfile split of one first tick's host
+   time.
 
 Then the ``kernels`` line, the ``nvidia-smi`` card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without
@@ -80,7 +103,11 @@ CUDA it exits 1 before printing a result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import cProfile
 import json
+import pstats
+import random
 import subprocess
 import sys
 import tempfile
@@ -90,14 +117,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch._private import kernels
+from ray_tpu_torch._private.scheduler import NodeView, PendingRequest
+from ray_tpu_torch._private.scheduler import cuda_batched
+from ray_tpu_torch._private.scheduler.cuda_batched import (CudaBatchedBackend,
+                                                           sched_scan,
+                                                           scan_reference)
+from ray_tpu_torch._private.scheduler.host_backend import HostBackend
 from ray_tpu_torch.models import decode
 from ray_tpu_torch.models.convert import shard_params
 from ray_tpu_torch.models.transformer import (SGD, ParallelConfig,
                                               TransformerConfig, forward,
                                               init_params, loss_fn,
                                               make_train_step, param_leaves)
-from ray_tpu_torch.ops.attention import (_route, flash_attention,
+from ray_tpu_torch.ops.attention import (_route, attention,
+                                         flash_attention,
                                          flash_attention_reference,
                                          flash_backward_reference,
                                          flash_bwd_dkv,
@@ -129,6 +164,9 @@ TOL = {torch.float32: {"o": (1e-4, 1e-4), "lse": (1e-5, 1e-5)},
 PREFILL_CASE = (1, 512, 16, 64, torch.bfloat16, True)
 TRAIN_CASE = (16, 1024, 16, 64, torch.bfloat16, True)
 PREFILL_CASE_FP32 = (1, 512, 16, 64, torch.float32, True)   # scalar route
+# the attention of ray_tpu_torch.entry(): 8 heads of 32 (padded to the
+# tensor-core tile's 64 columns in shared memory)
+ENTRY_CASE = (4, 128, 8, 32, torch.bfloat16, True)
 KERNEL_CASES = [
     PREFILL_CASE,
     TRAIN_CASE,
@@ -140,6 +178,11 @@ KERNEL_CASES = [
     (1, 512, 16, 64, torch.bfloat16, False),
     (2, 256, 8, 128, torch.bfloat16, True),    # head_dim 128
     (2, 256, 8, 128, torch.float32, True),
+    ENTRY_CASE,                                # entry(): head_dim 32
+    (4, 128, 8, 32, torch.float32, True),
+    (2, 300, 4, 8, torch.bfloat16, True),      # dryrun_multichip's 8
+    (2, 300, 4, 8, torch.float32, True),
+    (2, 200, 4, 16, torch.bfloat16, False),    # head_dim 16
 ]
 SERVE_WIDTHS = dict(vocab=32768, d_model=1024, n_heads=16, d_ff=4096,
                     max_seq=1024)
@@ -164,6 +207,11 @@ BWD_CASES = [
     (1, 512, 16, 64, torch.bfloat16, False),
     (2, 256, 8, 128, torch.float32, True),     # head_dim 128
     (2, 256, 8, 128, torch.bfloat16, True),
+    ENTRY_CASE,                                # head_dim 32
+    (4, 128, 8, 32, torch.float32, True),
+    (2, 300, 4, 8, torch.bfloat16, True),      # head_dim 8
+    (2, 300, 4, 8, torch.float32, True),
+    (2, 200, 4, 16, torch.bfloat16, False),    # head_dim 16
 ]
 FWD_SOURCES = {"sm90": "ray_tpu_torch/csrc/flash_fwd_sm90.cu",
                "scalar": "ray_tpu_torch/csrc/flash_fwd.cu"}
@@ -889,6 +937,516 @@ def phase_mesh_exact() -> None:
     assert max(attn_errs.values()) <= MESH_EXACT_TOL["attn"], attn_errs
 
 
+# ------------------------------------------------------------------ entry
+
+# whole-model bf16 tolerance on logits (ROADMAP: sums across layers run
+# in another order on the card)
+ENTRY_TOL = 6e-2
+
+
+def phase_entry() -> int:
+    """``ray_tpu_torch.entry()`` on the card (head_dim 32, K1 on the sm90
+    route once per layer), with K1's launch counts reset just before and
+    read just after; its CPU call's params and tokens carried to the
+    card against the CPU logits (the CPU and CUDA generators draw
+    different params); and K1 at the entry's attention shape against
+    ``attention`` (fp32, the plain path) on the same inputs, within
+    K1's bf16 tolerance. Returns K1's launches in the drive."""
+    _reset_launch_counts()
+    fn, (params, tokens) = ray_tpu_torch.entry()
+    with torch.no_grad():
+        logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    k1_launches = flash_attention.launches
+    k1_routes = dict(flash_attention.launches_by_route)
+    cfg = fn.keywords["cfg"]
+    assert logits.shape == (4, 128, 512), logits.shape
+    assert bool(torch.isfinite(logits).all())
+    assert k1_launches == cfg.n_layers > 0, k1_launches
+    assert k1_routes == {"sm90": k1_launches, "scalar": 0}, k1_routes
+    fn, (params, tokens) = ray_tpu_torch.entry(device="cpu")
+    with torch.no_grad():
+        want = fn(params, tokens)
+        card = {k: ({kk: p.to(DEVICE) for kk, p in v.items()}
+                    if isinstance(v, dict) else v.to(DEVICE))
+                for k, v in params.items()}
+        got = fn(card, tokens.to(DEVICE)).cpu()
+    err = float((got - want).abs().max())
+    share = tol_share(got, want, ENTRY_TOL, ENTRY_TOL)
+    q, k, v = _k1_inputs(ENTRY_CASE, SEED + 500)
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+        plain = attention(q.float(), k.float(), v.float())
+    k1_share = tol_share(out, plain, *TOL[torch.bfloat16]["o"])
+    emit({"phase": "entry", "shape": list(logits.shape),
+          "head_dim": cfg.head_dim,
+          "dtype": str(cfg.dtype).removeprefix("torch."),
+          "max_abs_err_vs_cpu": err, "tol": ENTRY_TOL, "tol_share": share,
+          "k1_launches": k1_launches, "k1_routes": k1_routes,
+          "k1_vs_attention": {
+              "shape": list(ENTRY_CASE[:4]),
+              "max_abs_err": float((out.float() - plain).abs().max()),
+              "tol": TOL[torch.bfloat16]["o"], "tol_share": k1_share}})
+    assert share <= 1.0, (err, share)
+    assert k1_share <= 1.0, k1_share
+    return k1_launches
+
+
+# -------------------------------------------------------------- scheduler
+
+# The cases of tests/test_scheduler_diff.py, rebuilt from their seeds,
+# and the two places where the reference's kernel departs from its host
+# oracle (the port follows the kernel).
+SCHED_SPREAD = 0.5
+# The `sched` configuration: the scale of the repo's own on-chip drain
+# (ci/sched_tpu_probe.py:27, 100,000 tasks) over the reference's
+# envelope of 250+ nodes (BASELINE.md:36-40), node 0 local.
+SCHED_TASKS, SCHED_NODES, SCHED_WAVES = 100_000, 256, 3
+SCHED_HOST_TASKS = 10_000   # the tick also held to HostBackend
+SCHED_SOURCE = "ray_tpu_torch/csrc/sched_scan.cu"
+# fp32 arithmetic per (task, node, resource) the scan must do: avail +
+# eps, totals - avail, + d, * 1/totals, * 2^20
+SCHED_FLOPS_PER_CELL = 5
+
+
+def sched_random_state(rng, num_tasks, num_nodes):
+    """``_random_state`` of tests/test_scheduler_diff.py: integer units,
+    node 0 local."""
+    nodes = []
+    for i in range(num_nodes):
+        total = {"CPU": float(rng.choice([2, 4, 8, 16]))}
+        if rng.random() < 0.5:
+            total["MEM"] = float(rng.choice([4, 8]))
+        if rng.random() < 0.3:
+            total["TPU"] = float(rng.choice([1, 4]))
+        avail = {k: float(rng.randint(0, int(v))) for k, v in total.items()}
+        nodes.append(NodeView(
+            node_id=bytes([i]) * 28, address=f"tcp://n{i}",
+            total=total, available=avail, is_local=(i == 0)))
+    pending = []
+    for t in range(num_tasks):
+        res = {"CPU": float(rng.choice([1, 2, 4]))}
+        if rng.random() < 0.3:
+            res["MEM"] = float(rng.choice([1, 2]))
+        if rng.random() < 0.2:
+            res["TPU"] = float(rng.choice([1, 2]))
+        locality = {}
+        for n in nodes:
+            if rng.random() < 0.4:
+                locality[n.node_id] = rng.randint(0, 10_000_000)
+        pending.append(PendingRequest(
+            req_id=t + 1, scheduling_class=0, resources=res,
+            locality=locality, deps_ready=rng.random() < 0.8))
+    return pending, nodes
+
+
+def _node(name: str, cpu: float, avail: float, local: bool) -> NodeView:
+    return NodeView(node_id=name.encode() * 28, address=f"tcp://{name}",
+                    total={"CPU": cpu}, available={"CPU": avail},
+                    is_local=local)
+
+
+def _req(req_id, cpu, **kw) -> PendingRequest:
+    return PendingRequest(req_id=req_id, scheduling_class=0,
+                          resources={"CPU": cpu}, **kw)
+
+
+def sched_cases() -> list:
+    """``(name, pending, nodes, spread)`` for every case of
+    tests/test_scheduler_diff.py but the multi-tick ones."""
+    cases = []
+    for seed in range(8):
+        rng = random.Random(seed)
+        pending, nodes = sched_random_state(
+            rng, num_tasks=rng.randint(1, 40), num_nodes=rng.randint(1, 6))
+        cases.append((f"random_{seed}", pending, nodes, 0.5))
+    cases.append(("infeasible_and_wait",
+                  [_req(1, 64.0), _req(2, 1.0)],
+                  [_node("a", 2.0, 0.0, True)], 0.5))
+    cases.append(("spillback_when_local_full", [_req(1, 1.0)],
+                  [_node("a", 2.0, 0.0, True),
+                   _node("b", 2.0, 2.0, False)], 0.5))
+    cases.append(("deps_gate_local_grant",
+                  [_req(1, 1.0, deps_ready=False)],
+                  [_node("a", 2.0, 2.0, True),
+                   _node("b", 2.0, 2.0, False)], 1.0))
+    cases.append(("deps_gate_spill_proceeds",
+                  [_req(2, 1.0, deps_ready=False,
+                        locality={b"b" * 28: 10_000_000})],
+                  [_node("a", 2.0, 0.0, True),
+                   _node("b", 2.0, 2.0, False)], 0.5))
+    cases.append(("locality_breaks_tie",
+                  [_req(1, 1.0, locality={b"c" * 28: 50_000_000})],
+                  [_node("a", 2.0, 0.0, True), _node("b", 2.0, 2.0, False),
+                   _node("c", 2.0, 2.0, False)], 0.5))
+    cases.append(("sequential_consumption",
+                  [_req(i, 1.0) for i in range(1, 4)],
+                  [_node("a", 2.0, 2.0, True)], 1.0))
+    return cases
+
+
+def sched_quirk_cases() -> list:
+    """Where the reference's kernel and its host oracle disagree; the
+    port follows the kernel. ``no_local_node``: argmax(is_local) makes
+    node a the local node of the hybrid rule and the frontier gate
+    (host: request 1 spills to b, 2 to a; kernel: 1 to a, 2 waits).
+    ``fp32_fractional``: fp32 availability and utilisation against the
+    host's Python floats (kernel grants request 15 and spills 29, the
+    host the other way round)."""
+    return [
+        ("no_local_node",
+         [_req(1, 1.0, locality={b"b" * 28: 50_000_000}),
+          _req(2, 1.0, deps_ready=False)],
+         [_node("a", 4.0, 4.0, False), _node("b", 4.0, 4.0, False)], 0.5),
+        ("fp32_fractional", [_req(i, 0.1) for i in range(1, 40)],
+         [_node("a", 3.0, 3.0, True), _node("b", 3.0, 3.0, False)], 0.5),
+    ]
+
+
+def sched_sequence(backends, check) -> None:
+    """The 12 ticks of test_resident_state_incremental_across_ticks
+    (arrivals, departures, locality and dependency changes, availability
+    moving between ticks) through every backend; ``check(tick, outs)``
+    sees each tick's decisions per backend, and the first backend's
+    drive the mutations."""
+    rng = random.Random(7)
+    pending, nodes = sched_random_state(rng, num_tasks=30, num_nodes=4)
+    next_id = len(pending) + 1
+    for tick in range(12):
+        outs = [b.schedule(pending, nodes, 0.5) for b in backends]
+        check(tick, outs)
+        granted = {d.req_id for d in outs[0]
+                   if d.action in ("grant", "spill")}
+        pending = [r for r in pending if r.req_id not in granted]
+        for r in pending:
+            if rng.random() < 0.2:
+                r.deps_ready = not r.deps_ready
+            if rng.random() < 0.2:
+                r.locality[nodes[rng.randrange(len(nodes))].node_id] = \
+                    rng.randint(0, 10_000_000)
+        for _ in range(rng.randint(0, 6)):
+            res = {"CPU": float(rng.choice([1, 2, 4]))}
+            pending.append(PendingRequest(
+                req_id=next_id, scheduling_class=0, resources=res,
+                deps_ready=rng.random() < 0.8))
+            next_id += 1
+        for n in nodes:
+            n.available = {k: float(rng.randint(0, int(v)))
+                           for k, v in n.total.items()}
+
+
+def sched_config(n_tasks: int, n_nodes: int, seed: int = SEED):
+    """The `sched` configuration's first tick: ``(pending, nodes)``.
+    Nodes: CPU from {8, 16, 32, 64}, object store 16 or 32, half with
+    memory 64 or 128, a quarter with 1, 4 or 8 GPUs; availability random
+    integer units; node 0 local. Requests: CPU from {1, 2, 4}, 30 % also
+    memory 1 or 2, 10 % a GPU or two; 0-100 MB of arguments on 10 % of
+    the (task, node) pairs; 80 % with their dependencies ready."""
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(n_nodes):
+        total = {"CPU": float(rng.choice([8, 16, 32, 64])),
+                 "object_store_memory": float(rng.choice([16, 32]))}
+        if rng.random() < 0.5:
+            total["memory"] = float(rng.choice([64, 128]))
+        if rng.random() < 0.25:
+            total["GPU"] = float(rng.choice([1, 4, 8]))
+        avail = {k: float(rng.integers(0, int(v) + 1))
+                 for k, v in total.items()}
+        nodes.append(NodeView(node_id=i.to_bytes(4, "big") * 7,
+                              address=f"tcp://n{i}", total=total,
+                              available=avail, is_local=i == 0))
+    cpu = rng.choice([1.0, 2.0, 4.0], n_tasks)
+    mem = np.where(rng.random(n_tasks) < 0.3,
+                   rng.choice([1.0, 2.0], n_tasks), 0.0)
+    gpu = np.where(rng.random(n_tasks) < 0.1,
+                   rng.choice([1.0, 2.0], n_tasks), 0.0)
+    deps = rng.random(n_tasks) < 0.8
+    ids = [n.node_id for n in nodes]
+    has = rng.random((n_tasks, n_nodes)) < 0.1
+    nbytes = rng.integers(0, 100_000_001, (n_tasks, n_nodes))
+    pending = []
+    for t in range(n_tasks):
+        res = {"CPU": float(cpu[t])}
+        if mem[t]:
+            res["memory"] = float(mem[t])
+        if gpu[t]:
+            res["GPU"] = float(gpu[t])
+        cols = np.flatnonzero(has[t])
+        pending.append(PendingRequest(
+            req_id=t + 1, scheduling_class=0, resources=res,
+            locality=dict(zip((ids[c] for c in cols),
+                              nbytes[t, cols].tolist())),
+            deps_ready=bool(deps[t])))
+    return pending, nodes
+
+
+def sched_scan_arrays(seed, tb=16, nb=8, rb=8, n_tasks=11, n_nodes=6,
+                      local=True) -> tuple:
+    """The scan's inputs built by hand (numpy, slot-ordered as
+    ``scan_reference`` takes them), where fp32 rounding decides:
+    demands and availability on a 0.05 grid and totals from {0, 3.5, 7,
+    14}, so the same fractions of different totals round differently
+    and utilisations tie or split by one unit of 2^-20 (utilisation as
+    used / totals in place of used * (1 / totals) moves thousands of
+    these decisions); locality over the whole int32 range, padding
+    positions and nodes, a shuffled perm; node 2 local, or none."""
+    rng = np.random.default_rng(seed)
+    demands = (rng.integers(0, 6, (tb, rb)) * 0.05).astype(np.float32)
+    demands[:, rb // 2:] = 0
+    locality = np.where(rng.random((tb, nb)) < 0.5,
+                        rng.integers(0, 2**31 - 1, (tb, nb)),
+                        0).astype(np.int32)
+    dep_ready = rng.random(tb) < 0.7
+    perm = rng.permutation(tb).astype(np.int32)
+    totals = rng.choice([0.0, 3.5, 7.0, 14.0], (nb, rb))
+    totals[:, rb // 2:] = 0
+    avail = np.floor(totals * rng.random((nb, rb)) / 0.05) * 0.05
+    is_local = np.zeros(nb, bool)
+    is_local[2] = local
+    valid_task = np.arange(tb) < n_tasks
+    valid_node = np.arange(nb) < n_nodes
+    return (demands, locality, dep_ready, perm, totals.astype(np.float32),
+            avail.astype(np.float32), is_local, valid_task, valid_node)
+
+
+# sched_scan_arrays on the card: (seed, t_bucket, n_bucket, tasks,
+# nodes, a local node, spread)
+SCHED_ARRAY_CASES = [(s, 8192, 256, 8000, 250, s % 2 == 0, sp)
+                     for s, sp in enumerate((0.5, 0.3, 0.5, 1.0))]
+
+
+def _decisions(ds) -> list:
+    return [(d.req_id, d.action, d.spill_address) for d in ds]
+
+
+def _sched_agree(name, kernel, host, ref, host_must_agree=True) -> bool:
+    """The kernel's decisions equal scan_reference's; and the host's,
+    unless the case is one where the reference departs from its host.
+    Returns whether the host agreed."""
+    kernel, host, ref = _decisions(kernel), _decisions(host), \
+        _decisions(ref)
+    assert kernel == ref, (name, "kernel != scan_reference",
+                           [(a, b) for a, b in zip(kernel, ref) if a != b])
+    if host_must_agree:
+        assert kernel == host, (name, "kernel != HostBackend",
+                                [(a, b) for a, b in zip(kernel, host)
+                                 if a != b])
+    return kernel == host
+
+
+@contextlib.contextmanager
+def _recorded_scans(log: list):
+    """Keep a reference to every scan launch's inputs and actions; the
+    caller copies them (``_keep_scan``) outside its timed window, before
+    the next tick rewrites the resident rows."""
+    real = cuda_batched._launch_sched_scan
+
+    def recording(ins, spread_fp):
+        actions = real(ins, spread_fp)
+        log.append((ins, spread_fp, actions))
+        return actions
+
+    cuda_batched._launch_sched_scan = recording
+    try:
+        yield
+    finally:
+        cuda_batched._launch_sched_scan = real
+
+
+def _keep_scan(entry) -> tuple:
+    """One recorded launch as ``(cpu_args, cpu_actions, card_args)``:
+    CPU copies for scan_reference, card copies for the timing."""
+    ins, spread_fp, actions = entry
+    return ([x.cpu() for x in ins] + [spread_fp], actions.cpu(),
+            [x.clone() for x in ins] + [spread_fp])
+
+
+def sched_bound(scan_args, n_tasks: int):
+    """Least time for one scan of ``n_tasks`` valid positions over the
+    real nodes and resource kinds (not the buckets' padding): per task
+    its demands over the kinds, its dense locality row over the nodes,
+    its dependency flag, perm and valid_task entries read once and its
+    action written once; the node table (totals, availability, is_local,
+    valid_node) read once; against SCHED_FLOPS_PER_CELL fp32 operations
+    per (task, node, kind) at the fp32 peak. Returns ``(ms, bound_by,
+    bytes, kinds, nodes)``."""
+    demands, totals, valid_node = scan_args[0], scan_args[4], scan_args[8]
+    kinds = int(((totals != 0).any(0) | (demands != 0).any(0)).sum())
+    nodes = int(valid_node.sum())
+    nbytes = (n_tasks * (kinds * 4 + nodes * 4 + 1 + 4 + 1 + 4)
+              + nodes * (kinds * 4 * 2 + 2))
+    flops = SCHED_FLOPS_PER_CELL * n_tasks * nodes * kinds
+    ms, by = _bound(flops, nbytes, torch.float32)
+    return ms, by, nbytes, kinds, nodes
+
+
+def sched_redraw(nodes, rng) -> None:
+    """Between drain waves: every node's availability drawn anew (as in
+    ``sched_config``), as the previous waves' tasks finish and others
+    take their place."""
+    for n in nodes:
+        n.available = {k: float(rng.integers(0, int(v) + 1))
+                       for k, v in n.total.items()}
+
+
+def sched_host_split(pending, nodes, top: int = 12) -> dict:
+    """cProfile of one first tick of a fresh backend (every row
+    uploaded): its wall under the profiler and the functions that take
+    the most time of their own. The profiler slows the Python-level
+    calls, so read the shares, not the times."""
+    backend = CudaBatchedBackend()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    backend.schedule(pending, nodes, SCHED_SPREAD)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    return {"profiled_wall_ms": wall_ms, "by_own_time": [
+        {"fn": f"{path.rsplit('/', 1)[-1]}:{line}({name})",
+         "calls": nc, "own_ms": tt * 1e3, "cum_ms": ct * 1e3}
+        for (path, line, name), (_, nc, tt, ct, _) in rows[:top]]}
+
+
+def phase_scheduler() -> dict:
+    """The cuda_batched backend against scan_reference and HostBackend
+    (exact decisions) on the small cases, the 12-tick sequence and the
+    reference's two quirks; then the `sched` configuration: a first tick
+    of SCHED_TASKS pending over SCHED_NODES nodes and SCHED_WAVES drain
+    waves (granted and spilled requests leave, no request arrives, every
+    node's availability is drawn anew before each wave), with the scan's
+    launches counted over that run. Returns the kernels-line row."""
+    t_phase = time.perf_counter()
+    host = HostBackend()
+
+    def three_ways(name, pending, nodes, spread, host_must_agree=True):
+        return _sched_agree(
+            name, CudaBatchedBackend().schedule(pending, nodes, spread),
+            host.schedule(pending, nodes, spread),
+            CudaBatchedBackend(device="cpu").schedule(pending, nodes, spread),
+            host_must_agree)
+
+    for case in sched_cases():
+        three_ways(*case)
+    quirks = {case[0]: {"host_agrees": three_ways(*case, False)}
+              for case in sched_quirk_cases()}
+    # the kernel alone on fractional arrays against scan_reference
+    array_actions = {}
+    for seed, tb, nb, n_tasks, n_nodes, local, spread in SCHED_ARRAY_CASES:
+        arrays = [torch.from_numpy(a) for a in sched_scan_arrays(
+            seed, tb, nb, 8, n_tasks, n_nodes, local)]
+        spread_fp = int(spread * (1 << 20))
+        got = sched_scan(*(a.to(DEVICE) for a in arrays), spread_fp).cpu()
+        want = scan_reference(*arrays, spread_fp)
+        assert torch.equal(got, want), (seed, int((got != want).sum()))
+        array_actions[seed] = {"placed": int((want >= 0).sum()),
+                               "wait": int((want[:n_tasks] == -1).sum()),
+                               "infeasible": int((want == -2).sum())}
+    seq_kernel, seq_cpu = CudaBatchedBackend(), CudaBatchedBackend("cpu")
+
+    def check(tick, outs):
+        _sched_agree(f"sequence tick {tick}", *outs)
+
+    sched_sequence([seq_kernel, host, seq_cpu], check)
+    assert seq_kernel.num_row_uploads == seq_cpu.num_row_uploads > 30, (
+        seq_kernel.num_row_uploads, seq_cpu.num_row_uploads)
+    assert seq_kernel.num_rebuilds == seq_cpu.num_rebuilds
+    small_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    pending, nodes = sched_config(SCHED_TASKS, SCHED_NODES)
+    gen_s = time.perf_counter() - t0
+    # a 10,000-pending tick of the same cluster against the host oracle
+    sub = pending[:SCHED_HOST_TASKS]
+    t0 = time.perf_counter()
+    want = HostBackend().schedule(sub, nodes, SCHED_SPREAD)
+    host_tick_ms = (time.perf_counter() - t0) * 1e3
+    got = CudaBatchedBackend().schedule(sub, nodes, SCHED_SPREAD)
+    assert _decisions(got) == _decisions(want), "10k tick != HostBackend"
+
+    backend = CudaBatchedBackend()
+    first_pending = pending
+    redraw = np.random.default_rng(SEED + 1)
+    scans, ticks = [], []
+    torch.cuda.synchronize()
+    sched_scan.launches = 0
+    with _recorded_scans(scans):
+        for wave in range(1 + SCHED_WAVES):
+            if wave:
+                sched_redraw(nodes, redraw)
+            uploads = backend.num_row_uploads
+            t0 = time.perf_counter()
+            decisions = backend.schedule(pending, nodes, SCHED_SPREAD)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            scans[-1] = _keep_scan(scans[-1])
+            placed = {d.req_id for d in decisions
+                      if d.action in ("grant", "spill")}
+            ticks.append({"pending": len(pending), "placed": len(placed),
+                          "row_uploads": backend.num_row_uploads - uploads,
+                          "wall_ms": wall_ms})
+            pending = [r for r in pending if r.req_id not in placed]
+    launches = sched_scan.launches
+    assert launches == len(scans) == 1 + SCHED_WAVES, (launches, len(scans))
+    assert backend.num_row_uploads == SCHED_TASKS, backend.num_row_uploads
+    assert all(t["placed"] > 0 for t in ticks), ticks
+    host_split = sched_host_split(first_pending, nodes)
+
+    # every tick's scan against scan_reference on the same inputs
+    plain_s, max_err = [], 0
+    for (cpu_args, actions, _), tick in zip(scans, ticks):
+        t0 = time.perf_counter()
+        ref = scan_reference(*cpu_args)
+        plain_s.append(time.perf_counter() - t0)
+        max_err = max(max_err, int((actions - ref).abs().max()))
+        assert torch.equal(actions, ref), (
+            tick, int((actions != ref).sum()))
+    first_args, first_tasks = scans[0][2], ticks[0]["pending"]
+    inc_args, inc_tasks = scans[1][2], ticks[1]["pending"]
+    # CUDA events bracket back-to-back launches of ~0.2 s each, so they
+    # time the device (a profiler window over this scan, late in the
+    # script, has recorded no device event on an H100)
+    first_ms = time_ms(lambda: sched_scan(*first_args), 3)
+    inc_ms = time_ms(lambda: sched_scan(*inc_args), 3)
+    bound_ms, bound_by, nbytes, kinds, real_nodes = sched_bound(
+        first_args, first_tasks)
+    row = {"phase": "scheduler", "cases": len(sched_cases()),
+           "sequence_ticks": 12, "quirks": quirks,
+           "array_cases": array_actions,
+           "sequence_row_uploads": seq_kernel.num_row_uploads,
+           "config": {"tasks": SCHED_TASKS, "nodes": SCHED_NODES,
+                      "resource_kinds": kinds, "spread": SCHED_SPREAD,
+                      "t_bucket": first_args[3].shape[0],
+                      "n_bucket": first_args[4].shape[0],
+                      "r_bucket": first_args[4].shape[1]},
+           "ticks": ticks, "launches": launches,
+           "row_uploads": backend.num_row_uploads,
+           "rebuilds": backend.num_rebuilds,
+           "kernel_ms_first": first_ms, "kernel_ms_incremental": inc_ms,
+           "us_per_task_first": first_ms * 1e3 / first_tasks,
+           "us_per_task_incremental": inc_ms * 1e3 / inc_tasks,
+           "tick_wall_ms_first": ticks[0]["wall_ms"],
+           "tick_wall_ms_incremental": [t["wall_ms"] for t in ticks[1:]],
+           "plain_ms": [x * 1e3 for x in plain_s],
+           "bound_bytes": nbytes, "bound_kinds": kinds,
+           "bound_nodes": real_nodes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "host_split_first_tick": host_split,
+           "host_tick_ms_10k": host_tick_ms, "config_gen_s": gen_s,
+           "small_cases_s": small_s,
+           "phase_s": time.perf_counter() - t_phase, "card": card_line()}
+    emit(row)
+    return {"name": "sched_scan", "route": "cuda", "source": SCHED_SOURCE,
+            "replaces": "ray_tpu/_private/scheduler/tpu_batched.py:124",
+            "replaces_kind": "XLA scan (lax.scan), not a Pallas kernel",
+            "launches": launches, "max_abs_err": max_err, "ms": first_ms,
+            "incremental_ms": inc_ms,
+            "plain_ms": row["plain_ms"][0],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": [first_tasks, real_nodes, kinds]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -909,6 +1467,8 @@ def main() -> int:
                           init_method=f"file://{tmp}/store", timeout_s=600):
         mesh_launches = phase_train(_mesh(), oracle=train)["launches"]
         phase_mesh_exact()
+    entry_launches = phase_entry()
+    sched_row = phase_scheduler()
     train_launches, train_routes = train["launches"], train["routes"]
     # K2 and K3 at the training shape on each route: bf16 (the train
     # path) on sm90, fp32 on the scalar kernels
@@ -941,7 +1501,8 @@ def main() -> int:
          "launches": serve_launches,
          "launches_by_path": {"serve": serve_launches,
                               "train": train_launches["flash_fwd"],
-                              "mesh_train": mesh_launches["flash_fwd"]},
+                              "mesh_train": mesh_launches["flash_fwd"],
+                              "entry": entry_launches},
          # over both paths
          "launches_by_route": {r: serve_routes[r] + train_routes["fwd"][r]
                                for r in serve_routes},
@@ -964,7 +1525,8 @@ def main() -> int:
                               **bwd_numbers(row, kernel, outs)}
                       for route, row in by_route.items()}}
           for kernel, line, outs in (("dkv", 190, ("dk", "dv")),
-                                     ("dq", 224, ("dq",))))]})
+                                     ("dq", 224, ("dq",)))),
+        sched_row]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

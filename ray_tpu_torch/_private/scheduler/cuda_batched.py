@@ -1,0 +1,456 @@
+"""cuda_batched scheduling backend: the decision path as one CUDA kernel
+over STATE-RESIDENT tensors.
+
+Counterpart of ``ray_tpu/_private/scheduler/tpu_batched.py``. A tick is
+one ordered scan over the pending lease requests, in arrival order,
+with per-node feasibility and fixed-point scoring inside each step:
+
+  * demands  [T, R]  — resource demand per pending lease request
+  * totals   [N, R]  / avail [N, R] — cluster resource table
+  * locality [T, N]  — bytes of each task's args already on each node
+  * is_local [N]
+
+The request-side tensors are **resident** on the backend's device
+across ticks, keyed by slot. A tick uploads only the DELTA — rows for
+newly arrived or changed requests (one ``index_copy_`` per tensor, from
+pinned host memory on CUDA) — so tick cost is O(changes) + one kernel
+launch. Requests keep their slot for life; a per-tick permutation
+restores arrival order inside the kernel (grants must see earlier
+grants' resource consumption, so the scan is ordered). Capacities are
+bucketed (powers of two) and growth rebuilds into a bigger bucket.
+
+* ``scan_reference`` is the plain PyTorch version of the reference's
+  jitted scan (``_compiled_kernel``), line for line in fp32 / int32 /
+  bool torch ops, looping over tasks in Python. It is the CPU path and
+  the yardstick of the kernel on the card.
+* ``sched_scan`` is the kernel's wrapper: a CUDA tensor launches
+  ``csrc/sched_scan.cu`` (or raises); a CPU tensor takes
+  ``scan_reference``. ``sched_scan.launches`` counts the launches.
+
+Decisions are those of the reference's JAX kernel, bit for bit,
+including where that kernel departs from the host oracle: with no local
+node, ``argmax(is_local)`` makes node 0 the local node of the hybrid
+rule and of the frontier gate; and availability and utilisation are
+fp32, where the host works in Python floats.
+
+Differences by design from the reference: the backend never serves a
+tick from the host backend (the reference does while its kernel device
+comes up, which would hide the device here); ``wait_ready`` is kept for
+API parity and is True once ``__init__`` has returned, which on CUDA
+has built and loaded the kernel. The device is the explicit ``device``
+argument (``None``: CUDA, raising without it), in place of
+``RAY_TPU_SCHEDULER_KERNEL_DEVICE`` and its subprocess preflight.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._private import kernels
+from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch._private.scheduler import (
+    GRANT, INFEASIBLE, SPILL, WAIT, Decision, NodeView, PendingRequest,
+    SchedulingBackend,
+)
+from ray_tpu_torch._private.scheduler.scoring import (
+    HI_LOC_SHIFT, LO_LOC_MASK, LOC_MAX, NODE_MAX, UTIL_MAX, UTIL_SCALE,
+    spread_threshold_fp,
+)
+
+ACTION_WAIT = -1
+ACTION_INFEASIBLE = -2
+# the key's node field (scoring.py) holds node indices below 2^15
+MAX_NODE_BUCKET = NODE_MAX + 1
+_IMAX = 2**31 - 1
+
+
+def _bucket(n: int) -> int:
+    """Pad to power-of-two-ish buckets so rebuilds stay rare."""
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+@torch.inference_mode()
+def scan_reference(demands_s, locality_s, dep_ready_s, perm, totals,
+                   avail0, is_local, valid_task, valid_node,
+                   spread_fp: int) -> torch.Tensor:
+    """The reference's scan (``tpu_batched.py:131-184``) in plain torch:
+    int32 actions [len(perm)], a node index or ACTION_WAIT /
+    ACTION_INFEASIBLE per scan position.
+
+    ``*_s`` are SLOT-ordered resident tensors; ``perm`` maps scan
+    position (arrival order) to slot; ``valid_task`` is per scan
+    POSITION. fp32 with the reference's rounding points; an invalid
+    position is WAIT and consumes nothing, as there. What does not
+    depend on the running availability (feasibility, the locality part
+    of the key) is computed for all positions before the loop."""
+    spread_fp = int(spread_fp)
+    dev = totals.device
+    perm = perm.long()
+    eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
+    inv_totals = torch.where(
+        totals > 0, torch.ones_like(totals) / torch.maximum(totals, eps),
+        torch.zeros_like(totals))
+    has_total = totals > 0
+    local_idx = int(torch.argmax(is_local.to(torch.int32)))
+    n_bucket = totals.shape[0]
+    node_idx = torch.arange(n_bucket, dtype=torch.int32, device=dev)
+    remote = torch.where(is_local, 0, 1).to(torch.int32)
+    imax = torch.tensor(_IMAX, dtype=torch.int32, device=dev)
+    # per position, in chunks: feasibility and the key's locality parts
+    feasible, key_hi_loc, key_lo = [], [], []
+    for start in range(0, perm.shape[0], 4096):
+        rows = perm[start:start + 4096]
+        d = demands_s[rows]
+        feasible.append(torch.all(totals[None] + eps >= d[:, None, :],
+                                  dim=2) & valid_node)
+        anti_loc = (1 << 20) - torch.clamp(locality_s[rows] >> 10,
+                                           max=LOC_MAX)
+        # 58-bit key carried as (hi, lo) int32 pair (see scoring.py).
+        key_hi_loc.append(anti_loc >> HI_LOC_SHIFT)
+        key_lo.append(((anti_loc & LO_LOC_MASK) << 16) | (remote << 15)
+                      | node_idx)
+    feasible = torch.cat(feasible)
+    any_feasible = torch.any(feasible, dim=1).tolist()
+    key_hi_loc, key_lo = torch.cat(key_hi_loc), torch.cat(key_lo)
+    demands = demands_s[perm]
+    t_ready = dep_ready_s[perm].tolist()
+    valid = valid_task.tolist()
+    avail = avail0.clone()
+    actions = torch.full((perm.shape[0],), ACTION_WAIT, dtype=torch.int32,
+                         device=dev)
+    for t in range(perm.shape[0]):
+        if not valid[t]:
+            continue   # ~tvalid -> WAIT, and nothing is taken
+        if not any_feasible[t]:
+            actions[t] = ACTION_INFEASIBLE
+            continue
+        d = demands[t]
+        ready = torch.all(avail + eps >= d, dim=1) & feasible[t]
+        used = (totals - avail) + d
+        # Fixed-point critical-resource utilization, ceil semantics. The
+        # clamp before the int cast equals the reference's cast then
+        # clip wherever a value reaches a decision (ready nodes, whose
+        # values are in range) and keeps the cast defined elsewhere.
+        frac = used * inv_totals
+        fp = torch.clamp(torch.ceil(frac * UTIL_SCALE), 0,
+                         UTIL_MAX).to(torch.int32)
+        util_fp = torch.amax(torch.where(has_total, fp, 0), dim=1)
+        hi = torch.where(ready, (util_fp << 10) | key_hi_loc[t], imax)
+        min_hi = torch.min(hi)
+        if int(min_hi) == _IMAX:
+            continue   # no node ready: WAIT
+        lo = torch.where(ready & (hi == min_hi), key_lo[t], imax)
+        best = int(torch.argmin(lo))
+        # Hybrid rule: local node wins while under the spread threshold.
+        local_ready = (bool(ready[local_idx])
+                       and int(util_fp[local_idx]) <= spread_fp)
+        chosen = local_idx if local_ready else best
+        # Frontier gate: a local grant waits for dep prefetch; a spill
+        # to a node already holding the data proceeds (scoring.py).
+        if chosen == local_idx and not t_ready[t]:
+            continue
+        actions[t] = chosen
+        avail[chosen] -= d
+    return actions
+
+
+# sched_scan's C entry point (csrc/sched_scan.cu): nine input pointers,
+# two scratch and one output pointer, spread_fp, positions, n_bucket,
+# r_bucket, then the stream
+_SCAN_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+              + [ctypes.c_void_p])
+_SCAN_DTYPES = (torch.float32, torch.int32, torch.bool, torch.int32,
+                torch.float32, torch.float32, torch.bool, torch.bool,
+                torch.bool)
+_SCAN_NAMES = ("demands", "locality", "dep_ready", "perm", "totals",
+               "avail", "is_local", "valid_task", "valid_node")
+
+
+@functools.cache
+def _scan_fn():
+    lib = kernels.library("sched_scan")
+    fn = lib.sched_scan
+    fn.argtypes = _SCAN_ARGS
+    fn.restype = ctypes.c_int
+    err = lib.sched_scan_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def _check_scan_inputs(ins) -> None:
+    """What the kernel refuses: another dtype, a non-contiguous input,
+    inputs on more than one device, shapes that do not fit one
+    (t_bucket, n_bucket, r_bucket), or more nodes than the key holds."""
+    for name, x, dtype in zip(_SCAN_NAMES, ins, _SCAN_DTYPES):
+        if x.dtype != dtype:
+            raise TypeError(f"sched_scan: {name} must be {dtype}, got "
+                            f"{x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"sched_scan: {name} must be contiguous")
+        if x.device != ins[0].device:
+            raise ValueError("sched_scan: inputs must lie on one device")
+    demands, locality, dep_ready, perm, totals, avail, is_local, \
+        valid_task, valid_node = ins
+    cap_t, rb = demands.shape
+    nb = totals.shape[0]
+    shapes = {"locality": (locality.shape, (cap_t, nb)),
+              "dep_ready": (dep_ready.shape, (cap_t,)),
+              "totals": (totals.shape, (nb, rb)),
+              "avail": (avail.shape, (nb, rb)),
+              "is_local": (is_local.shape, (nb,)),
+              "valid_node": (valid_node.shape, (nb,)),
+              "valid_task": (valid_task.shape, perm.shape)}
+    for name, (got, want) in shapes.items():
+        if tuple(got) != tuple(want):
+            raise ValueError(f"sched_scan: {name} must be {tuple(want)}, "
+                             f"got {tuple(got)}")
+    if perm.dim() != 1 or nb > MAX_NODE_BUCKET or min(nb, rb) < 1:
+        raise ValueError(f"sched_scan takes 1 to {MAX_NODE_BUCKET} nodes "
+                         f"and a 1-d perm, got {nb} nodes, perm "
+                         f"{tuple(perm.shape)}")
+
+
+def _launch(device, *args) -> None:
+    """Call the C entry point on ``device``'s current stream; raise on a
+    failed launch."""
+    fn, err_string = _scan_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"sched_scan kernel launch failed: "
+                           f"{err_string(err).decode()} (cudaError {err})")
+
+
+def _launch_sched_scan(ins, spread_fp: int) -> torch.Tensor:
+    """Launch the scan on the inputs' current stream; int32 actions."""
+    _check_scan_inputs(ins)
+    totals, perm = ins[4], ins[3]
+    nb, rb = totals.shape
+    # scratch: the scan's running availability and 1 / totals
+    avail_work = torch.empty_like(totals)
+    inv_work = torch.empty_like(totals)
+    actions = torch.empty(perm.shape, dtype=torch.int32,
+                          device=totals.device)
+    _launch(totals.device, *(x.data_ptr() for x in ins),
+            avail_work.data_ptr(), inv_work.data_ptr(), actions.data_ptr(),
+            int(spread_fp), perm.shape[0], nb, rb)
+    sched_scan.launches += 1
+    return actions
+
+
+def sched_scan(demands_s, locality_s, dep_ready_s, perm, totals, avail0,
+               is_local, valid_task, valid_node,
+               spread_fp: int) -> torch.Tensor:
+    """The scan's wrapper, with ``scan_reference``'s arguments and
+    result. CUDA tensors launch ``csrc/sched_scan.cu`` (or raise); CPU
+    tensors take ``scan_reference``."""
+    ins = (demands_s, locality_s, dep_ready_s, perm, totals, avail0,
+           is_local, valid_task, valid_node)
+    if totals.device.type != "cuda":
+        return scan_reference(*ins, spread_fp)
+    return _launch_sched_scan(ins, spread_fp)
+
+
+sched_scan.launches = 0   # kernel launches since the last reset
+
+
+class _ResidentState:
+    """Slot-addressed request tensors living on the backend's device."""
+
+    def __init__(self, cap_t: int, cap_n: int, cap_r: int, device):
+        self.cap_t, self.cap_n, self.cap_r = cap_t, cap_n, cap_r
+        self.demands = torch.zeros((cap_t, cap_r), dtype=torch.float32,
+                                   device=device)
+        self.locality = torch.zeros((cap_t, cap_n), dtype=torch.int32,
+                                    device=device)
+        self.dep_ready = torch.ones((cap_t,), dtype=torch.bool,
+                                    device=device)
+        self.slots: Dict[int, int] = {}       # req_id -> slot
+        self.free: List[int] = list(range(cap_t - 1, -1, -1))
+        # per-request fingerprint of the mutable inputs (deps_ready +
+        # locality dict) so changed rows re-upload
+        self.finger: Dict[int, tuple] = {}
+
+
+class CudaBatchedBackend(SchedulingBackend):
+    """Drop-in for HostBackend behind the scheduler seam.
+
+    ``device=None`` runs on CUDA and raises without it. On CUDA,
+    ``__init__`` builds (if needed) and loads ``csrc/sched_scan.cu``; a
+    missing nvcc or a failed build raises there. Counters:
+    ``num_row_uploads`` (rows sent up) and ``num_rebuilds`` (resident
+    tensors reallocated); the kernel's launches are
+    ``sched_scan.launches``."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            _scan_fn()
+        self._resource_names: List[str] = []
+        self._state: Optional[_ResidentState] = None
+        self._node_order: List[bytes] = []
+        self.num_row_uploads = 0   # introspection: delta-upload counter
+        self.num_rebuilds = 0
+
+    def wait_ready(self, timeout_s: float = 60.0) -> bool:
+        """True: the kernel was built and loaded in ``__init__`` (the
+        reference's kernel comes up on a side thread)."""
+        del timeout_s
+        return True
+
+    # ---------------------------------------------------------- resident
+
+    def _intern_kinds(self, pending, nodes) -> List[str]:
+        kinds = list(self._resource_names)
+        known = set(kinds)
+        for req in pending:
+            for k in req.resources:
+                if k not in known:
+                    kinds.append(k)
+                    known.add(k)
+        for n in nodes:
+            for k in n.total:
+                if k not in known:
+                    kinds.append(k)
+                    known.add(k)
+        self._resource_names = kinds
+        return kinds
+
+    @staticmethod
+    def _fingerprint(req: PendingRequest) -> tuple:
+        # exact: the host oracle reads locality dicts directly, so a
+        # missed change would diverge the differential tests
+        return (req.deps_ready, tuple(sorted(req.locality.items())))
+
+    def _ensure_state(self, n_pending: int, nodes: List[NodeView],
+                      kinds: List[str]) -> _ResidentState:
+        """(Re)build the resident tensors when capacities or the node
+        column order change; otherwise return the live state."""
+        node_order = [n.node_id for n in nodes]
+        st = self._state
+        # Sized from n_pending alone: each tick reconciles slots to
+        # exactly the pending set before allocating, so n_pending live
+        # requests always fit an n_pending-bucket capacity.
+        need_t = _bucket(n_pending)
+        need_n = _bucket(len(nodes))
+        need_r = _bucket(max(len(kinds), 1))
+        if (st is None or need_t > st.cap_t or need_n != st.cap_n
+                or need_r != st.cap_r or node_order != self._node_order):
+            self._state = _ResidentState(
+                max(need_t, st.cap_t if st else 0), need_n, need_r,
+                self.device)
+            self._node_order = node_order
+            self.num_rebuilds += 1
+            # existing requests re-upload on this tick (their
+            # fingerprints are dropped)
+        return self._state
+
+    def _upload(self, rows: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(rows)
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def schedule(self, pending: List[PendingRequest],
+                 nodes: List[NodeView],
+                 spread_threshold: float) -> List[Decision]:
+        if not pending:
+            return []
+        # Stable resource-kind interning across ticks (reference:
+        # scheduling_ids.h string->int interning).
+        kinds = self._intern_kinds(pending, nodes)
+        kidx = {k: i for i, k in enumerate(kinds)}
+        nidx = {n.node_id: i for i, n in enumerate(nodes)}
+        st = self._ensure_state(len(pending), nodes, kinds)
+        N = len(nodes)
+        tb, nb, rb = st.cap_t, st.cap_n, st.cap_r
+
+        # ---- delta detection: new / changed / departed requests ----
+        current = set()
+        dirty: List[PendingRequest] = []
+        for req in pending:
+            current.add(req.req_id)
+            fp = self._fingerprint(req)
+            if st.finger.get(req.req_id) != fp:
+                st.finger[req.req_id] = fp
+                dirty.append(req)
+        for req_id in [r for r in st.slots if r not in current]:
+            st.free.append(st.slots.pop(req_id))
+            st.finger.pop(req_id, None)
+
+        if dirty:
+            idx = np.empty((len(dirty),), np.int64)
+            drows = np.zeros((len(dirty), rb), np.float32)
+            lrows = np.zeros((len(dirty), nb), np.int32)
+            deps = np.ones((len(dirty),), bool)
+            for i, req in enumerate(dirty):
+                slot = st.slots.get(req.req_id)
+                if slot is None:
+                    slot = st.free.pop()
+                    st.slots[req.req_id] = slot
+                idx[i] = slot
+                for k, v in req.resources.items():
+                    if v > 0:
+                        drows[i, kidx[k]] = v
+                for node_id, nbytes in req.locality.items():
+                    ni = nidx.get(node_id)
+                    if ni is not None:
+                        lrows[i, ni] = min(nbytes, 2**31 - 1)
+                deps[i] = req.deps_ready
+            idx_d = self._upload(idx)
+            st.demands.index_copy_(0, idx_d, self._upload(drows))
+            st.locality.index_copy_(0, idx_d, self._upload(lrows))
+            st.dep_ready.index_copy_(0, idx_d, self._upload(deps))
+            self.num_row_uploads += len(dirty)
+
+        # ---- per-tick small inputs (arrival order + node table) ----
+        perm = np.zeros((tb,), np.int32)
+        valid_task = np.zeros((tb,), bool)
+        for pos, req in enumerate(pending):
+            perm[pos] = st.slots[req.req_id]
+            valid_task[pos] = True
+        totals = np.zeros((nb, rb), np.float32)
+        avail = np.zeros((nb, rb), np.float32)
+        is_local = np.zeros((nb,), bool)
+        valid_node = np.zeros((nb,), bool)
+        for ni, n in enumerate(nodes):
+            valid_node[ni] = True
+            is_local[ni] = n.is_local
+            for k, v in n.total.items():
+                totals[ni, kidx[k]] = v
+            for k, v in n.available.items():
+                avail[ni, kidx[k]] = v
+        small = [self._upload(x) for x in (perm, totals, avail, is_local,
+                                           valid_task, valid_node)]
+        perm_d, totals_d, avail_d, is_local_d, valid_task_d, valid_node_d = \
+            small
+        spread_fp = min(spread_threshold_fp(spread_threshold), 2**31 - 1)
+        actions = sched_scan(
+            st.demands, st.locality, st.dep_ready, perm_d, totals_d,
+            avail_d, is_local_d, valid_task_d, valid_node_d,
+            spread_fp).cpu().numpy()
+
+        decisions: List[Decision] = []
+        local = next((n for n in nodes if n.is_local), None)
+        for ti, req in enumerate(pending):
+            a = int(actions[ti])
+            if a == ACTION_INFEASIBLE:
+                decisions.append(Decision(req.req_id, INFEASIBLE))
+            elif a == ACTION_WAIT or a >= N:
+                decisions.append(Decision(req.req_id, WAIT))
+            elif local is not None and nodes[a].node_id == local.node_id:
+                decisions.append(Decision(req.req_id, GRANT))
+            else:
+                decisions.append(Decision(req.req_id, SPILL,
+                                          spill_address=nodes[a].address))
+        return decisions

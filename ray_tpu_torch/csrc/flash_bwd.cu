@@ -12,7 +12,10 @@
 //
 // Layout: q, k, v, dO, dQ, dK, dV are [B, T, H, D] read and written
 // through their (b, t, h) strides with unit stride on D, as K1 does.
-// dtype is fp32 or bf16, D is 64 or 128; anything else is refused.
+// dtype is fp32 (D 8, 16, 32, 64 or 128) or bf16 (D 64 or 128); anything
+// else is refused. D = 8 is padded to 16 columns in shared memory (zeros),
+// since a thread owns output columns 16 apart; the padding is never
+// written back.
 //
 // Design: the TPU runs the reduction axis as the innermost, sequential
 // grid axis and carries the sums in VMEM scratch. GPU blocks run in
@@ -89,16 +92,21 @@ struct BwdInputs {
   int causal;
 };
 
+// Columns of a tile of head_dim D in shared memory.
+__host__ __device__ constexpr int padded(int d) { return d < 16 ? 16 : d; }
+
 // Rows [t0, t0 + 64) of one head of x into dst[64][ld] as fp32; rows past
-// seq are zero.
+// seq and the padding columns past D are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* head,
                                           long long stride_t, int t0,
                                           int seq) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = t0 + r;
-    dst[r * LD + d] = t < seq ? to_float(head[t * stride_t + d]) : 0.f;
+  constexpr int DP = padded(D);
+  constexpr int LD = DP + 1;
+  for (int i = threadIdx.x; i < kBlock * DP; i += kThreads) {
+    const int r = i / DP, d = i % DP, t = t0 + r;
+    dst[r * LD + d] =
+        t < seq && d < D ? to_float(head[t * stride_t + d]) : 0.f;
   }
 }
 
@@ -123,7 +131,7 @@ __device__ __forceinline__ void bwd_tile(
     const float* lse_s, const float* delta_s, int q0, int k0, int seq,
     float sm_scale, int causal, float (&p)[kRows][kRows],
     float (&ds)[kRows][kRows]) {
-  constexpr int LD = D + 1;
+  constexpr int LD = padded(D) + 1;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   float s[kRows][kRows], dp[kRows][kRows];
@@ -171,15 +179,15 @@ __device__ __forceinline__ void bwd_tile(
 template <int D>
 constexpr size_t dkv_smem_bytes() {
   // K, V, Q, dO tiles; p and ds tiles; lse and delta rows
-  return sizeof(float) *
-         (4 * kBlock * (D + 1) + 2 * kBlock * (kBlock + 1) + 2 * kBlock);
+  return sizeof(float) * (4 * kBlock * (padded(D) + 1) +
+                          2 * kBlock * (kBlock + 1) + 2 * kBlock);
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
   // Q, dO, K, V tiles; ds tile; lse and delta rows
   return sizeof(float) *
-         (4 * kBlock * (D + 1) + kBlock * (kBlock + 1) + 2 * kBlock);
+         (4 * kBlock * (padded(D) + 1) + kBlock * (kBlock + 1) + 2 * kBlock);
 }
 
 // K2: dK, dV of one (b, h, k-tile), looping over q-tiles.
@@ -187,9 +195,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(BwdInputs<T> in, T* __restrict__ dk,
                      T* __restrict__ dv, Strides sdk, Strides sdv) {
-  constexpr int LD = D + 1;
+  constexpr int LD = padded(D) + 1;
   constexpr int LP = kBlock + 1;
-  constexpr int kOut = D / 16;  // output columns per thread
+  constexpr int kOut = padded(D) / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* ks = smem;               // [kBlock][LD]
   float* vs = ks + kBlock * LD;   // [kBlock][LD]
@@ -272,6 +280,7 @@ flash_bwd_dkv_kernel(BwdInputs<T> in, T* __restrict__ dk,
     T* dvrow = dv + b * sdv.b + t * sdv.t + h * sdv.h;
 #pragma unroll
     for (int c = 0; c < kOut; ++c) {
+      if (tx + 16 * c >= D) continue;
       dkrow[tx + 16 * c] = from_float<T>(dk_acc[i][c]);
       dvrow[tx + 16 * c] = from_float<T>(dv_acc[i][c]);
     }
@@ -282,9 +291,9 @@ flash_bwd_dkv_kernel(BwdInputs<T> in, T* __restrict__ dk,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(BwdInputs<T> in, T* __restrict__ dq, Strides sdq) {
-  constexpr int LD = D + 1;
+  constexpr int LD = padded(D) + 1;
   constexpr int LP = kBlock + 1;
-  constexpr int kOut = D / 16;
+  constexpr int kOut = padded(D) / 16;
   extern __shared__ float smem[];
   float* qs = smem;               // [kBlock][LD]
   float* dos = qs + kBlock * LD;  // [kBlock][LD]
@@ -359,7 +368,7 @@ flash_bwd_dq_kernel(BwdInputs<T> in, T* __restrict__ dq, Strides sdq) {
     T* dqrow = dq + b * sdq.b + t * sdq.t + h * sdq.h;
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
-      dqrow[tx + 16 * c] = from_float<T>(dq_acc[i][c]);
+      if (tx + 16 * c < D) dqrow[tx + 16 * c] = from_float<T>(dq_acc[i][c]);
   }
 }
 
@@ -436,6 +445,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
       make_inputs<T>(q, k, v, dout, lse, delta, seq, heads, in_strides,    \
                      sm_scale, causal),                                    \
       dk, dv, sdk, sdv, batch, st))
+  if (dtype == 0 && head_dim == 8) RTT_LAUNCH(float, 8);
+  if (dtype == 0 && head_dim == 16) RTT_LAUNCH(float, 16);
+  if (dtype == 0 && head_dim == 32) RTT_LAUNCH(float, 32);
   if (dtype == 0 && head_dim == 64) RTT_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) RTT_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) RTT_LAUNCH(__nv_bfloat16, 64);
@@ -459,6 +471,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
       make_inputs<T>(q, k, v, dout, lse, delta, seq, heads, in_strides,    \
                      sm_scale, causal),                                    \
       dq, sdq, batch, st))
+  if (dtype == 0 && head_dim == 8) RTT_LAUNCH(float, 8);
+  if (dtype == 0 && head_dim == 16) RTT_LAUNCH(float, 16);
+  if (dtype == 0 && head_dim == 32) RTT_LAUNCH(float, 32);
   if (dtype == 0 && head_dim == 64) RTT_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) RTT_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) RTT_LAUNCH(__nv_bfloat16, 64);

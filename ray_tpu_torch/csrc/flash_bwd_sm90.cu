@@ -12,7 +12,8 @@
 // [B, H, T, 1].
 //
 // Layout: q, k, v, dO, dQ, dK, dV are bf16 [B, T, H, D] read and written
-// through their (b, t, h) strides with unit stride on D; D is 64 or 128.
+// through their (b, t, h) strides with unit stride on D; D is 8, 16, 32,
+// 64 or 128 (under 64, tiles are padded to 64 columns in shared memory).
 // The caller guarantees 16-byte aligned base pointers and (b, t, h)
 // strides that are multiples of 8 elements (cp.async copies 16 bytes).
 //
@@ -92,7 +93,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const float* lse,
 
 template <int D>
 struct DkvSmem {  // byte offsets from a 1024-aligned base
-  static constexpr int kTile = kBlock * D * 2;
+  static constexpr int kTile = kBlock * padded(D) * 2;
   static constexpr int K = 0, V = kTile;
   static constexpr int Q = 2 * kTile;   // two buffers
   static constexpr int DO = 4 * kTile;  // two buffers
@@ -108,7 +109,7 @@ flash_bwd_dkv_sm90_kernel(Inputs in, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, Strides sdk,
                           Strides sdv) {
   using S = DkvSmem<D>;
-  constexpr int kHalves = D / 64;
+  constexpr int kHalves = padded(D) / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -168,7 +169,7 @@ flash_bwd_dkv_sm90_kernel(Inputs in, bf16* __restrict__ dk,
     fence_acc(dpt);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < (D + 15) / 16; ++kk) {
       wgmma_ss(st, kmajor(base + S::K, kk), kmajor(qs, kk));
       wgmma_ss(dpt, kmajor(base + S::V, kk), kmajor(dos, kk));
     }
@@ -241,8 +242,8 @@ flash_bwd_dkv_sm90_kernel(Inputs in, bf16* __restrict__ dk,
   bf16* dvh = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
   for (int x = 0; x < kHalves; ++x) {
-    store_acc(dk_acc[x], dkh, sdk.t, k0, x, seq);
-    store_acc(dv_acc[x], dvh, sdv.t, k0, x, seq);
+    store_acc<D>(dk_acc[x], dkh, sdk.t, k0, x, seq);
+    store_acc<D>(dv_acc[x], dvh, sdv.t, k0, x, seq);
   }
 }
 
@@ -250,7 +251,7 @@ flash_bwd_dkv_sm90_kernel(Inputs in, bf16* __restrict__ dk,
 
 template <int D>
 struct DqSmem {  // byte offsets from a 1024-aligned base
-  static constexpr int kTile = kBlock * D * 2;
+  static constexpr int kTile = kBlock * padded(D) * 2;
   static constexpr int Q = 0, DO = kTile;
   static constexpr int K = 2 * kTile;  // two buffers
   static constexpr int V = 4 * kTile;  // two buffers
@@ -263,7 +264,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_sm90_kernel(Inputs in, bf16* __restrict__ dq, Strides sdq) {
   using S = DqSmem<D>;
-  constexpr int kHalves = D / 64;
+  constexpr int kHalves = padded(D) / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
 
@@ -323,7 +324,7 @@ flash_bwd_dq_sm90_kernel(Inputs in, bf16* __restrict__ dq, Strides sdq) {
     fence_acc(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < (D + 15) / 16; ++kk) {
       wgmma_ss(sc, kmajor(base + S::Q, kk), kmajor(ks, kk));
       wgmma_ss(dp, kmajor(base + S::DO, kk), kmajor(vs, kk));
     }
@@ -373,7 +374,7 @@ flash_bwd_dq_sm90_kernel(Inputs in, bf16* __restrict__ dq, Strides sdq) {
   bf16* dqh = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
   for (int x = 0; x < kHalves; ++x)
-    store_acc(dq_acc[x], dqh, sdq.t, q0, x, seq);
+    store_acc<D>(dq_acc[x], dqh, sdq.t, q0, x, seq);
 }
 
 Inputs make_inputs(const void* q, const void* k, const void* v,
@@ -446,10 +447,13 @@ extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
                                 in_strides, sm_scale, causal);
   const Strides sdk{sdkb, sdkt, sdkh}, sdv{sdvb, sdvt, sdvh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return static_cast<int>(launch_dkv<64>(in, dk, dv, sdk, sdv, batch, st));
-  if (head_dim == 128)
-    return static_cast<int>(launch_dkv<128>(in, dk, dv, sdk, sdv, batch, st));
+  switch (head_dim) {
+#define RTT_CASE(D) \
+  case D:           \
+    return static_cast<int>(launch_dkv<D>(in, dk, dv, sdk, sdv, batch, st));
+    RTT_CASE(8) RTT_CASE(16) RTT_CASE(32) RTT_CASE(64) RTT_CASE(128)
+#undef RTT_CASE
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -465,10 +469,13 @@ extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                 in_strides, sm_scale, causal);
   const Strides sdq{sdqb, sdqt, sdqh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return static_cast<int>(launch_dq<64>(in, dq, sdq, batch, st));
-  if (head_dim == 128)
-    return static_cast<int>(launch_dq<128>(in, dq, sdq, batch, st));
+  switch (head_dim) {
+#define RTT_CASE(D) \
+  case D:           \
+    return static_cast<int>(launch_dq<D>(in, dq, sdq, batch, st));
+    RTT_CASE(8) RTT_CASE(16) RTT_CASE(32) RTT_CASE(64) RTT_CASE(128)
+#undef RTT_CASE
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

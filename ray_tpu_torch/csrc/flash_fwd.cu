@@ -11,7 +11,9 @@
 //
 // Layout: q, k, v, o are [B, T, H, D] read and written through their
 // (b, t, h) strides with unit stride on D, so no transpose copy is made.
-// dtype is fp32, D is 64 or 128; anything else is refused.
+// dtype is fp32, D is 8, 16, 32, 64 or 128; anything else is refused.
+// D = 8 is padded to 16 columns in shared memory (zeros), since a thread
+// owns output columns 16 apart; the padding is never written back.
 //
 // Design: one thread block of 256 threads per (b, h, 64-row q-tile). The
 // block loops over 64-row k-tiles itself (the TPU's sequential ki grid
@@ -47,10 +49,14 @@ struct Strides {
   long long b, t, h;
 };
 
+// Columns of a tile of head_dim D in shared memory.
+__host__ __device__ constexpr int padded(int d) { return d < 16 ? 16 : d; }
+
 template <int D>
 constexpr size_t smem_bytes() {
   // Q and K rows padded by one float so column reads hit distinct banks.
-  return sizeof(float) * (2 * kBlockQ * (D + 1) + kBlockK * D +
+  constexpr int DP = padded(D);
+  return sizeof(float) * (2 * kBlockQ * (DP + 1) + kBlockK * DP +
                           kBlockQ * (kBlockK + 1));
 }
 
@@ -61,14 +67,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ lse, int seq, int heads, Strides sq,
                  Strides sk, Strides sv, Strides so, float sm_scale,
                  int causal) {
-  constexpr int LD = D + 1;
+  constexpr int DP = padded(D);
+  constexpr int LD = DP + 1;
   constexpr int LP = kBlockK + 1;
-  constexpr int kOut = D / 16;  // output columns per thread
+  constexpr int kOut = DP / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;                // [kBlockQ][LD]
   float* ks = qs + kBlockQ * LD;   // [kBlockK][LD]
-  float* vs = ks + kBlockK * LD;   // [kBlockK][D]
-  float* ps = vs + kBlockK * D;    // [kBlockQ][LP]
+  float* vs = ks + kBlockK * LD;   // [kBlockK][DP]
+  float* ps = vs + kBlockK * DP;   // [kBlockQ][LP]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -81,9 +88,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = q0 + r;
-    qs[r * LD + d] = t < seq ? qb[t * sq.t + d] : 0.f;
+  for (int i = tid; i < kBlockQ * DP; i += kThreads) {
+    const int r = i / DP, d = i % DP, t = q0 + r;
+    qs[r * LD + d] = t < seq && d < D ? qb[t * sq.t + d] : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kOut];
@@ -103,11 +110,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // previous tile's readers are done with ks, vs, ps
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, d = i % D, t = k0 + r;
-      const bool in = t < seq;
+    for (int i = tid; i < kBlockK * DP; i += kThreads) {
+      const int r = i / DP, d = i % DP, t = k0 + r;
+      const bool in = t < seq && d < D;
       ks[r * LD + d] = in ? kb[t * sk.t + d] : 0.f;
-      vs[r * D + d] = in ? vb[t * sv.t + d] : 0.f;
+      vs[r * DP + d] = in ? vb[t * sv.t + d] : 0.f;
     }
     __syncthreads();
 
@@ -169,7 +176,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + 16 * i) * LP + kk];
 #pragma unroll
       for (int c = 0; c < kOut; ++c) {
-        const float x = vs[kk * D + tx + 16 * c];
+        const float x = vs[kk * DP + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(pv[i], x, acc[i][c]);
       }
@@ -184,7 +191,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + b * so.b + t * so.t + h * so.h;
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
-      orow[tx + 16 * c] = acc[i][c] / li;
+      if (tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c] / li;
     if (tx == 0) lse[((long long)b * heads + h) * seq + t] = m[i] + logf(li);
   }
 }
@@ -224,13 +231,15 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
       so{sob, sot, soh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return static_cast<int>(launch<64>(q, k, v, o, lse, batch, seq, heads,
-                                       sq, sk, sv, so, sm_scale, causal, st));
-  if (dtype == 0 && head_dim == 128)
-    return static_cast<int>(launch<128>(q, k, v, o, lse, batch, seq, heads,
-                                        sq, sk, sv, so, sm_scale, causal,
-                                        st));
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+#define RTT_CASE(D)                                                        \
+  case D:                                                                  \
+    return static_cast<int>(launch<D>(q, k, v, o, lse, batch, seq, heads,  \
+                                      sq, sk, sv, so, sm_scale, causal, st));
+    RTT_CASE(8) RTT_CASE(16) RTT_CASE(32) RTT_CASE(64) RTT_CASE(128)
+#undef RTT_CASE
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

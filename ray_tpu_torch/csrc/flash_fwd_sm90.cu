@@ -12,7 +12,8 @@
 // K2, K3 and ring attention read.
 //
 // Layout: q, k, v, o are bf16 [B, T, H, D] read and written through
-// their (b, t, h) strides with unit stride on D; D is 64 or 128. The
+// their (b, t, h) strides with unit stride on D; D is 8, 16, 32, 64 or
+// 128 (under 64, tiles are padded to 64 columns in shared memory). The
 // caller guarantees 16-byte aligned base pointers and (b, t, h) strides
 // that are multiples of 8 elements (cp.async copies 16 bytes).
 //
@@ -81,7 +82,7 @@ struct FwdArgs {
 
 template <int D>
 struct FwdSmem {  // byte offsets from a 1024-aligned base
-  static constexpr int kTile = kBlock * D * 2;
+  static constexpr int kTile = kBlock * padded(D) * 2;
   static constexpr int Q = 0;
   static constexpr int K = kTile;             // two buffers
   static constexpr int V = K + 2 * kTile;     // two buffers
@@ -94,7 +95,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_sm90_kernel(FwdArgs a) {
   using S = FwdSmem<D>;
-  constexpr int kHalves = D / 64;
+  constexpr int kHalves = padded(D) / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
 
@@ -144,7 +145,7 @@ flash_fwd_sm90_kernel(FwdArgs a) {
     fence_acc(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)
       wgmma_ss(sc, kmajor(base + S::Q, kk), kmajor(ks, kk));
     wgmma_commit();
     wgmma_wait();
@@ -225,7 +226,7 @@ flash_fwd_sm90_kernel(FwdArgs a) {
   bf16* oh = a.o + b * a.so.b + h * a.so.h;
 #pragma unroll
   for (int x = 0; x < kHalves; ++x)
-    store_acc(o_acc[x], oh, a.so.t, q0, x, seq);
+    store_acc<D>(o_acc[x], oh, a.so.t, q0, x, seq);
   if (threadIdx.x % 4 == 0) {
     const long long row0 = ((long long)b * a.heads + h) * seq;
 #pragma unroll
@@ -274,8 +275,13 @@ extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                   sm_scale,
                   causal};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return static_cast<int>(launch<64>(a, batch, st));
-  if (head_dim == 128) return static_cast<int>(launch<128>(a, batch, st));
+  switch (head_dim) {
+#define RTT_CASE(D) \
+  case D:           \
+    return static_cast<int>(launch<D>(a, batch, st));
+    RTT_CASE(8) RTT_CASE(16) RTT_CASE(32) RTT_CASE(64) RTT_CASE(128)
+#undef RTT_CASE
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

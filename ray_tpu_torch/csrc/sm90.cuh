@@ -7,6 +7,9 @@
 //   (row % 8). One layout serves both ways a tile is read: K-major
 //   (contracting over D) and MN-major (contracting over the rows, with
 //   wgmma's transpose flag).
+//   A head_dim under 64 (8, 16 or 32) is padded to one sub-tile: its
+//   columns past D are zero-filled, so the products over them add
+//   nothing, and they are never written back.
 // * cp.async copies 16 bytes a thread into the swizzled address; rows
 //   past the sequence are zero-filled by the copy's source size.
 // * Products are wgmma.mma_async with bf16 inputs and fp32 sums; an
@@ -71,25 +74,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Columns of a tile of head_dim D in shared memory: D, or one 64-wide
+// sub-tile when D < 64.
+__host__ __device__ constexpr int padded(int d) { return d < 64 ? 64 : d; }
+
 // Byte offset of 16-byte chunk c (of D / 8) of row r in a swizzled tile.
 __device__ __forceinline__ uint32_t swizzled(int r, int c) {
   return (c / 8) * kSubTile + r * 128 + (((c % 8) ^ (r % 8)) * 16);
 }
 
 // Rows [t0, t0 + 64) of one head into the swizzled tile at dst; rows past
-// seq are zero.
+// seq and the padding columns past D are zero.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* head,
                                           long long stride_t, int t0,
                                           int seq) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = padded(D) / 8;
 #pragma unroll
   for (int n = 0; n < kBlock * kChunks / kThreads; ++n) {
     const int i = threadIdx.x + n * kThreads;
     const int r = i / kChunks, c = i % kChunks;
     const int t = t0 + r;
-    const bool valid = t < seq;
-    const bf16* src = head + (valid ? t * stride_t : 0) + c * 8;
+    const bool valid = t < seq && c < D / 8;
+    const bf16* src = head + (valid ? t * stride_t + c * 8 : 0);
     cp_async_16(dst + swizzled(r, c), src, valid);
   }
 }
@@ -214,7 +221,8 @@ __device__ __forceinline__ void a_fragments(const float (&d)[32], int kk,
 }
 
 // Writes rows [t0, t0 + 64) (those below seq) of columns [64 half, 64 half
-// + 64) of one head from an accumulator, in bf16.
+// + 64) (those below D) of one head from an accumulator, in bf16.
+template <int D>
 __device__ __forceinline__ void store_acc(const float (&d)[32], bf16* head,
                                           long long stride_t, int t0,
                                           int half, int seq) {
@@ -223,7 +231,7 @@ __device__ __forceinline__ void store_acc(const float (&d)[32], bf16* head,
 #pragma unroll
     for (int e = 0; e < 4; e += 2) {
       const int t = t0 + acc_row(e);
-      if (t < seq)
+      if (t < seq && 64 * half + 8 * j < D)
         *reinterpret_cast<uint32_t*>(head + t * stride_t + 64 * half +
                                      acc_col(j, e)) =
             bf16x2(d[4 * j + e], d[4 * j + e + 1]);

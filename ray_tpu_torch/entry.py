@@ -39,9 +39,9 @@ def dryrun_multichip(n_devices: int, device=None) -> float:
     ranks with ``device="cpu"``. Returns the loss; raises if it is not
     finite.
 
-    The reference's tiny config, except 64-wide heads (it has 8), the
-    narrowest the flash kernels take: with sp = 1 attention is local,
-    which launches K1-K3 on CUDA."""
+    The reference's tiny config, 8-wide heads included: with sp = 1
+    attention is local, which launches K1-K3 on CUDA (they pad a
+    head_dim under 64 in shared memory)."""
     device = resolve_device(device)
     shape = default_mesh_shape(n_devices)
     losses = run_spmd(_dryrun_rank, n_devices, shape, device.type,
@@ -59,7 +59,7 @@ def _dryrun_rank(rank: int, shape: MeshConfig, device_type: str) -> float:
     # tiny shapes, every axis exercised; sizes divisible by the mesh
     heads = max(4, 2 * shape.tp)
     cfg = TransformerConfig(
-        vocab=64, d_model=heads * 64, n_heads=heads,
+        vocab=64, d_model=heads * 8, n_heads=heads,
         n_layers=2 * max(1, shape.pp), d_ff=16 * shape.tp,
         max_seq=8 * shape.sp)
     pcfg = ParallelConfig(

@@ -24,7 +24,10 @@ Counterpart of ``ray_tpu/ops/attention.py``. Shapes everywhere:
 * ``flash_attention`` dispatches as the JAX function does, except that on
   CUDA every Tq == Tk call goes through ``_Flash``, the counterpart of
   JAX's ``_flash`` custom_vjp: K1 forward, and delta then K2 and K3
-  backward, at any T (the kernels mask the ragged tail themselves).
+  backward, at any T (the kernels mask the ragged tail themselves) and
+  at every head_dim the kernels are built for (8, 16, 32, 64, 128; any
+  other raises). ``_use_kernel`` holds that decision; decode steps
+  (Tq != Tk) and CPU calls go to ``attention``.
 
 Each wrapper counts its launches: ``flash_attention.launches`` (K1),
 ``flash_bwd_dkv.launches`` (K2) and ``flash_bwd_dq.launches`` (K3), and
@@ -42,7 +45,9 @@ from ray_tpu_torch._private import kernels
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+# Under 64 (the tensor-core tile's width) the kernels pad the head in
+# shared memory with zero columns.
+_KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
@@ -176,7 +181,8 @@ def _kernel_error(lib: str, err: int) -> str:
 def _check_kernel_inputs(q, *others) -> None:
     """What every flash kernel refuses: another dtype than fp32/bf16,
     mixed dtypes or devices, shapes other than one [B, T, H, D], a
-    head_dim other than 64/128, an empty input, or head_dim strided."""
+    head_dim outside ``_KERNEL_HEAD_DIMS``, an empty input, or head_dim
+    strided."""
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -395,20 +401,29 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _use_kernel(device_type: str, Tq: int, Tk: int) -> bool:
+    """Whether ``flash_attention`` runs the kernels: on CUDA, for
+    Tq == Tk, whatever the head_dim (the kernels raise at one they are
+    not built for). Decode steps (Tq != Tk) and the CPU go to
+    ``attention``, as they do in the reference."""
+    return device_type == "cuda" and Tq == Tk
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: float | None = None, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """Blockwise online-softmax attention; the JAX signature.
 
     CUDA with Tq == Tk: ``_Flash`` (K1 forward; K2 and K3 backward when
-    an input requires grad), at any T. CUDA with Tq != Tk (decode) and
-    every CPU call: ``attention`` under torch autograd, as the JAX
-    function does off-TPU. ``block_q``/``block_k`` are kept for signature
-    parity: the CUDA kernels tile at 64 x 64 whatever they say.
+    an input requires grad), at any T and any head_dim in
+    ``_KERNEL_HEAD_DIMS`` (another raises). CUDA with Tq != Tk (decode),
+    and every CPU call: ``attention`` under torch autograd, as the JAX
+    function does off-TPU. ``block_q``/``block_k`` are kept for signature parity: the
+    CUDA kernels tile at 64 x 64 whatever they say.
     """
     del block_q, block_k
     sm_scale = _scale(q, sm_scale)
-    if q.device.type != "cuda" or k.shape[1] != q.shape[1]:
+    if not _use_kernel(q.device.type, q.shape[1], k.shape[1]):
         return attention(q, k, v, causal=causal, sm_scale=sm_scale)
     return _Flash.apply(q, k, v, causal, sm_scale)
 

@@ -114,3 +114,39 @@ def test_fwd_launch_takes_its_route_with_its_signature(monkeypatch, dtype,
         with pytest.raises(ValueError, match="multiples of 8"):
             tattn._launch_flash_fwd(q, padded, v, True, 0.1)
         assert len(calls) == 1 and tattn.flash_attention.launches == 1
+
+
+@pytest.mark.parametrize("D", [8, 32, 64, 128])
+def test_flash_attention_routes_head_dims_the_kernels_lack(D):
+    # on CUDA every Tq == Tk call runs the kernels, whatever the head_dim:
+    # those they are built for pass their checks, and any other raises
+    # there rather than running the plain path on the card; decode
+    # (Tq != Tk) and the CPU take the plain path
+    assert tattn._use_kernel("cuda", 96, 96)
+    assert tattn._use_kernel("cuda", 300, 300)
+    assert not tattn._use_kernel("cuda", 1, 96)
+    assert not tattn._use_kernel("cpu", 96, 96)
+    assert D in tattn._KERNEL_HEAD_DIMS
+    tattn._check_kernel_inputs(*(torch.zeros(1, 8, 2, D) for _ in range(3)))
+    lack = {8: 24, 32: 40, 64: 96, 128: 256}[D]   # a width beside D
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn._check_kernel_inputs(*(torch.zeros(1, 8, 2, lack)
+                                     for _ in range(3)))
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_flash_attention_consults_the_routing(monkeypatch, D):
+    # flash_attention asks _use_kernel with the call's (device, Tq, Tk):
+    # with the device taken out of the decision, D=32 reaches _Flash as
+    # D=64 does
+    asked, flashed = [], []
+    monkeypatch.setattr(tattn, "_use_kernel", lambda dev, tq, tk: (
+        asked.append((dev, tq, tk)) or True))
+    monkeypatch.setattr(tattn._Flash, "apply", lambda q, k, v, causal, sc: (
+        flashed.append(q.shape) or tattn.attention(q, k, v, causal=causal,
+                                                   sm_scale=sc)))
+    q, k, v = _inputs(3, 1, 40, 2, D, torch.float32)
+    out = tattn.flash_attention(q, k, v)
+    assert asked == [("cpu", 40, 40)]
+    assert flashed == [q.shape]
+    torch.testing.assert_close(out, tattn.attention(q, k, v))

@@ -185,3 +185,22 @@ def test_entry_runs_on_cpu():
     logits = fn(*args)
     assert logits.shape == (4, 128, 512)
     assert bool(torch.isfinite(logits).all())
+
+
+def test_entry_matches_jax_entry():
+    # the port's entry against __graft_entry__.entry on the JAX params,
+    # carried across: the same config (head_dim 32), tokens and logits
+    # at the whole-model bf16 tolerance
+    import __graft_entry__
+    from ray_tpu_torch import entry
+
+    jfn, (jparams, jtokens) = __graft_entry__.entry()
+    fn, (params, tokens) = entry(device="cpu")
+    cfg = fn.keywords["cfg"]
+    assert cfg.head_dim == 32 and tokens.shape == jtokens.shape
+    carried = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      cfg, device="cpu")
+    want = jfn(jparams, jtokens)
+    got = fn(carried, torch.from_numpy(np.array(jtokens)))
+    assert got.shape == (4, 128, 512)
+    _close(got, want, TOL["bf16"])

@@ -112,7 +112,8 @@ def test_library_name_tracks_sources():
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
     assert kernels.kernel_names() == ["flash_bwd", "flash_bwd_sm90",
-                                      "flash_fwd", "flash_fwd_sm90"]
+                                      "flash_fwd", "flash_fwd_sm90",
+                                      "sched_scan"]
 
 
 def test_library_name_tracks_the_shared_header(tmp_path, monkeypatch):
