@@ -23,7 +23,8 @@ looser one:
   of ``tests/test_ops.py``.
 * ``sched_scan`` faults, in ``csrc/sched_scan.cu``: the whole
   ``scheduler`` phase, whose decisions must equal ``scan_reference``'s
-  and ``HostBackend``'s exactly (there is no looser check).
+  and ``HostBackend``'s exactly (there is no looser check). Four break
+  the scan's arithmetic or rules; one breaks the walk's exit test.
 
 A ``control`` copy with no fault must pass every check. At most six
 copies run at once. Prints one JSON line per copy (each check's verdicts
@@ -107,21 +108,25 @@ FAULTS = {
     # utilisation as used / totals, not used * (1 / totals): one rounding
     # apart, which moves a ceil at the spread threshold
     "sched_divide_not_reciprocal": ((
-        SCHED, "ceilf(__fmul_rn(__fmul_rn(used, inv[n * rb + r]),",
-        "ceilf(__fmul_rn(__fdiv_rn(used, tot),"), ("sched",)),
+        SCHED, "__fmul_rn(__fadd_rn(c.base[i], dr), c.inv[i])",
+        "__fdiv_rn(__fadd_rn(c.base[i], dr), c.tot[i])"), ("sched",)),
     # a grant does not take its demand from the chosen node
     "sched_no_consumption": ((
-        SCHED,
-        "avail[action * rb + r] = __fsub_rn(avail[action * rb + r], d[r]);",
-        "(void)r;"), ("sched",)),
+        SCHED, "__fsub_rn(c.av[i], d[c.kinds[k]])", "c.av[i]"), ("sched",)),
     # the frontier gate ignores dependencies
     "sched_no_frontier_gate": ((
-        SCHED, "const bool blocked = chosen == local_idx && !dep_ready[slot];",
+        SCHED,
+        "const bool blocked = chosen == c.local_idx && !(hf & kDepReady);",
         "const bool blocked = false;"), ("sched",)),
     # the key drops the locality term
     "sched_key_without_locality": ((
-        SCHED, "const int anti = (1 << 20) - min(loc[n] >> 10, kLocMax);",
+        SCHED, "const int anti = (1 << 20) - min(l >> 10, kLocMax);",
         "const int anti = 1 << 20;"), ("sched",)),
+    # the exit test takes the suffix minimum from the next chunk on, so
+    # the demands of the position's own chunk no longer hold the walk
+    "sched_exit_suffix_from_next_chunk": ((
+        SCHED, "const int ch = p >> a.chunk_log2;",
+        "const int ch = (p >> a.chunk_log2) + 1;"), ("sched",)),
 }
 WAVE = 6   # copies at once: each holds a few GB of reference tensors
 

@@ -84,16 +84,25 @@ Phases, one JSON line each, in order:
    ``HostBackend``, decisions compared exactly: the cases of
    tests/test_scheduler_diff.py and its 12-tick sequence (row uploads
    equal to the CPU backend's), and the reference's two quirks (the
-   kernel follows ``scan_reference``, not the host). Then the `sched`
-   configuration (``sched_config``, a synthetic stress size): a first
-   tick of 100,000 pending over 256 nodes and three drain waves (no
-   arrivals, availability drawn anew before each), the scan's launches
-   counted over them and each tick's scan held to ``scan_reference``; a
-   10,000 pending tick held to ``HostBackend``; kernel ms (first and
-   incremental tick), tick wall ms (inputs copied outside the timed
-   window), µs per task, rows uploaded, the bound over the real tasks,
-   nodes and kinds, and a cProfile split of one first tick's host
-   time.
+   kernel follows ``scan_reference``, not the host). The kernel alone
+   on fractional arrays, signed ones (negative and zero demands, a grant
+   giving availability back), ones whose placements resume after 7,000
+   positions, and a node bucket too large for shared memory (the
+   global-state route, checked by the walk's ``shared`` counter). Then
+   the `sched` configuration (``sched_config``, a synthetic stress
+   size): a first tick of 100,000 pending over 256 nodes and three drain
+   waves (no arrivals, availability drawn anew before each), the scan's
+   launches counted over them, each tick's walk counters printed and its
+   scan held to ``scan_reference``; the first tick's scan with every
+   task placing (``dense``); a 10,000 pending tick held to
+   ``HostBackend``; kernel ms (first and incremental tick, dense), split
+   into the walk kernel's set-up and loop (its own global-timer counts)
+   and the rest (the pre-pass and the gap between the two kernels),
+   tick wall ms (inputs copied outside the timed window), µs per task
+   and per placement, rows uploaded, the bound over what the output
+   needs (the locality rows of the positions ready on some node at their
+   turn, by ``sched_ready_positions``) beside the bound over every row,
+   and a cProfile split of one first tick's host time.
 
 Then the ``kernels`` line, the ``nvidia-smi`` card line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero; without
@@ -123,7 +132,8 @@ from ray_tpu_torch._private.scheduler import NodeView, PendingRequest
 from ray_tpu_torch._private.scheduler import cuda_batched
 from ray_tpu_torch._private.scheduler.cuda_batched import (CudaBatchedBackend,
                                                            sched_scan,
-                                                           scan_reference)
+                                                           scan_reference,
+                                                           walk_counters)
 from ray_tpu_torch._private.scheduler.host_backend import HostBackend
 from ray_tpu_torch.models import decode
 from ray_tpu_torch.models.convert import shard_params
@@ -1004,9 +1014,12 @@ SCHED_SPREAD = 0.5
 SCHED_TASKS, SCHED_NODES, SCHED_WAVES = 100_000, 256, 3
 SCHED_HOST_TASKS = 10_000   # the tick also held to HostBackend
 SCHED_SOURCE = "ray_tpu_torch/csrc/sched_scan.cu"
-# fp32 arithmetic per (task, node, resource) the scan must do: avail +
-# eps, totals - avail, + d, * 1/totals, * 2^20
+# fp32 arithmetic per (task, node, resource) the scan must do where the
+# task is ready on some node: avail + eps, totals - avail, + d, *
+# 1/totals, * 2^20; and for every valid task the feasibility test,
+# totals + eps >= d (totals + eps once per node)
 SCHED_FLOPS_PER_CELL = 5
+SCHED_FEASIBLE_OPS_PER_CELL = 1
 
 
 def sched_random_state(rng, num_tasks, num_nodes):
@@ -1210,10 +1223,62 @@ def sched_scan_arrays(seed, tb=16, nb=8, rb=8, n_tasks=11, n_nodes=6,
             avail.astype(np.float32), is_local, valid_task, valid_node)
 
 
+def sched_signed_arrays(seed, tb=16, nb=8, rb=8, n_tasks=11, n_nodes=6,
+                        local=True, negative=0.1, zero=0.1) -> tuple:
+    """``sched_scan_arrays`` with a ``zero`` share of the valid
+    positions' demand rows all zeros and a ``negative`` share with a
+    negative first kind (-0.05 to -0.3): a grant of those gives
+    availability back, so a task not ready before it may be after."""
+    arrays = list(sched_scan_arrays(seed, tb, nb, rb, n_tasks, n_nodes,
+                                    local))
+    rng = np.random.default_rng(seed + 1000)
+    demands, perm = arrays[0], arrays[3]
+    rows = perm[:n_tasks]
+    pick = rng.random(n_tasks)
+    demands[rows[pick < zero]] = 0
+    neg = rows[pick > 1 - negative]
+    demands[neg, 0] = -(rng.integers(1, 7, neg.shape[0]) * 0.05).astype(
+        np.float32)
+    return tuple(arrays)
+
+
+def sched_late_arrays(seed, tb=1024, nb=32, rb=8, n_large=900,
+                      n_tasks=1000, n_nodes=30, local=True) -> tuple:
+    """``sched_scan_arrays`` where placements resume late: the first
+    ``n_large`` positions ask 7 of the first kind, which the nodes with 7
+    or 14 in total hold but none has free (availability of that kind is
+    capped at 3), and the positions after them keep their small demands
+    (at most 0.25 a kind), which place."""
+    arrays = list(sched_scan_arrays(seed, tb, nb, rb, n_tasks, n_nodes,
+                                    local))
+    demands, perm, avail = arrays[0], arrays[3], arrays[5]
+    demands[perm[:n_large]] = 0
+    demands[perm[:n_large], 0] = 7.0
+    avail[:, 0] = np.minimum(avail[:, 0], np.float32(3.0))
+    return tuple(arrays)
+
+
+def sched_dense(arrays, scale: float = 1000.0) -> tuple:
+    """The same scan with totals and availability ``scale`` times the
+    totals and every dependency ready: every task a node can hold
+    places."""
+    (demands, locality, dep_ready, perm, totals, _, is_local, valid_task,
+     valid_node) = (np.asarray(a) for a in arrays)
+    big = (totals * np.float32(scale)).astype(np.float32)
+    return (demands, locality, np.ones_like(dep_ready), perm, big,
+            big.copy(), is_local, valid_task, valid_node)
+
+
 # sched_scan_arrays on the card: (seed, t_bucket, n_bucket, tasks,
 # nodes, a local node, spread)
 SCHED_ARRAY_CASES = [(s, 8192, 256, 8000, 250, s % 2 == 0, sp)
                      for s, sp in enumerate((0.5, 0.3, 0.5, 1.0))]
+# The kernel alone on the card, beside them: negative and zero demand
+# rows, placements that resume after 7,000 positions, and a node bucket
+# whose state does not fit shared memory (the global route).
+SCHED_SIGNED_CASE = (11, 8192, 256, 8000, 250, True, 0.5)
+SCHED_LATE_CASE = (12, 8192, 256, 7000, 8000, 250, True, 0.5)
+SCHED_GLOBAL_CASE = (13, 2048, 4096, 2000, 4000, True, 0.5)
 
 
 def _decisions(ds) -> list:
@@ -1262,23 +1327,59 @@ def _keep_scan(entry) -> tuple:
             [x.clone() for x in ins] + [spread_fp])
 
 
-def sched_bound(scan_args, n_tasks: int):
+def sched_bound(scan_args, n_tasks: int, n_rows: int | None = None):
     """Least time for one scan of ``n_tasks`` valid positions over the
     real nodes and resource kinds (not the buckets' padding): per task
-    its demands over the kinds, its dense locality row over the nodes,
-    its dependency flag, perm and valid_task entries read once and its
-    action written once; the node table (totals, availability, is_local,
-    valid_node) read once; against SCHED_FLOPS_PER_CELL fp32 operations
-    per (task, node, kind) at the fp32 peak. Returns ``(ms, bound_by,
-    bytes, kinds, nodes)``."""
+    its demands over the kinds, its dependency flag, perm and valid_task
+    entries read once and its action written once; the dense locality
+    rows of ``n_rows`` tasks (default all; ``sched_ready_positions``
+    counts the rows the output needs); the node table (totals,
+    availability, is_local, valid_node) read once; against the
+    feasibility test of every task (SCHED_FEASIBLE_OPS_PER_CELL per
+    (task, node, kind)) and SCHED_FLOPS_PER_CELL fp32 operations per
+    (task, node, kind) over the ``n_rows`` tasks, at the fp32 peak.
+    Returns ``(ms, bound_by, bytes, operations, kinds, nodes)``."""
     demands, totals, valid_node = scan_args[0], scan_args[4], scan_args[8]
     kinds = int(((totals != 0).any(0) | (demands != 0).any(0)).sum())
     nodes = int(valid_node.sum())
-    nbytes = (n_tasks * (kinds * 4 + nodes * 4 + 1 + 4 + 1 + 4)
+    n_rows = n_tasks if n_rows is None else n_rows
+    nbytes = (n_tasks * (kinds * 4 + 1 + 4 + 1 + 4) + n_rows * nodes * 4
               + nodes * (kinds * 4 * 2 + 2))
-    flops = SCHED_FLOPS_PER_CELL * n_tasks * nodes * kinds
-    ms, by = _bound(flops, nbytes, torch.float32)
-    return ms, by, nbytes, kinds, nodes
+    ops = (SCHED_FEASIBLE_OPS_PER_CELL * n_tasks
+           + SCHED_FLOPS_PER_CELL * n_rows) * nodes * kinds
+    ms, by = _bound(ops, nbytes, torch.float32)
+    return ms, by, nbytes, ops, kinds, nodes
+
+
+def sched_ready_positions(scan_args, actions, block: int = 2048) -> int:
+    """How many valid positions are ready on some valid node at their
+    turn (feasible and ``avail + 1e-9 >= d`` in fp32 on every kind), by
+    replaying ``actions`` (scan_reference's) on the scan's inputs: only
+    those need their locality row, since a position ready nowhere is
+    WAIT or INFEASIBLE whatever its row. Between two placements the
+    availability is fixed, so the positions up to each placement are
+    tested together, ``block`` at a time."""
+    demands, perm, totals, avail0, valid_task, valid_node = (
+        np.asarray(scan_args[i]) for i in (0, 3, 4, 5, 7, 8))
+    actions = np.asarray(actions)
+    eps = np.float32(1e-9)
+    dem = demands[perm.astype(np.int64)]
+    valid, vnode = valid_task.astype(bool), valid_node.astype(bool)
+    feasible = totals + eps
+    avail = avail0.copy()
+    ready, start = 0, 0
+    for end in [*np.flatnonzero(actions >= 0), perm.shape[0]]:
+        # positions start..end see the availability before end's grant
+        idx = np.arange(start, min(end + 1, perm.shape[0]))
+        idx = idx[valid[idx]]
+        for lo in range(0, idx.shape[0], block):
+            d = dem[idx[lo:lo + block]][:, None, :]
+            ready += int((vnode & np.all(feasible >= d, axis=2)
+                          & np.all(avail + eps >= d, axis=2)).any(1).sum())
+        if end < perm.shape[0]:
+            avail[actions[end]] = avail[actions[end]] - dem[end]
+        start = end + 1
+    return ready
 
 
 def sched_redraw(nodes, rng) -> None:
@@ -1311,14 +1412,52 @@ def sched_host_split(pending, nodes, top: int = 12) -> dict:
         for (path, line, name), (_, nc, tt, ct, _) in rows[:top]]}
 
 
+def _kernel_case(name, arrays, spread, shared=True, timed=False) -> dict:
+    """The kernel alone on numpy ``arrays`` against scan_reference;
+    asserts equal actions and the route (state in shared memory or in
+    global memory). Returns the actions' tally, the walk counters and,
+    ``timed``, the kernel's ms."""
+    arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    spread_fp = int(spread * (1 << 20))
+    want = scan_reference(*arrays, spread_fp)
+    card = [a.to(DEVICE) for a in arrays]
+    got = sched_scan(*card, spread_fp).cpu()
+    walk = walk_counters(sched_scan.last_walk)
+    assert torch.equal(got, want), (name, int((got != want).sum()))
+    assert walk["shared"] == int(shared), (name, walk)
+    placed = want >= 0
+    out = {"placed": int(placed.sum()),
+           "wait": int(((want == -1) & arrays[7]).sum()),
+           "infeasible": int((want == -2).sum()),
+           "placed_negative": int((arrays[0][arrays[3][placed].long()]
+                                   < 0).any(1).sum()),
+           "walk": walk}
+    if timed:
+        out["ms"] = time_ms(lambda: sched_scan(*card, spread_fp), 10)
+    return out
+
+
+def _walk_split(ms: float, walk: dict) -> dict:
+    """One scan's event time split by the walk kernel's own global-timer
+    counts: its set-up, its loop, and the rest (the pre-pass and the gap
+    between the two kernels), in ms."""
+    init_ms, loop_ms = walk["init_ns"] / 1e6, walk["walk_ns"] / 1e6
+    return {"walk_init_ms": init_ms, "walk_loop_ms": loop_ms,
+            "prepass_and_gap_ms": ms - init_ms - loop_ms}
+
+
 def phase_scheduler() -> dict:
     """The cuda_batched backend against scan_reference and HostBackend
     (exact decisions) on the small cases, the 12-tick sequence and the
-    reference's two quirks; then the `sched` configuration: a first tick
-    of SCHED_TASKS pending over SCHED_NODES nodes and SCHED_WAVES drain
-    waves (granted and spilled requests leave, no request arrives, every
-    node's availability is drawn anew before each wave), with the scan's
-    launches counted over that run. Returns the kernels-line row."""
+    reference's two quirks; the kernel alone on fractional, signed
+    (negative and zero demands), late-resuming and global-route arrays;
+    then the `sched` configuration: a first tick of SCHED_TASKS pending
+    over SCHED_NODES nodes and SCHED_WAVES drain waves (granted and
+    spilled requests leave, no request arrives, every node's
+    availability is drawn anew before each wave), with the scan's
+    launches counted over that run; then the first tick's scan with
+    every task placing (the dense case). Returns the kernels-line
+    row."""
     t_phase = time.perf_counter()
     host = HostBackend()
 
@@ -1336,15 +1475,20 @@ def phase_scheduler() -> dict:
     # the kernel alone on fractional arrays against scan_reference
     array_actions = {}
     for seed, tb, nb, n_tasks, n_nodes, local, spread in SCHED_ARRAY_CASES:
-        arrays = [torch.from_numpy(a) for a in sched_scan_arrays(
-            seed, tb, nb, 8, n_tasks, n_nodes, local)]
-        spread_fp = int(spread * (1 << 20))
-        got = sched_scan(*(a.to(DEVICE) for a in arrays), spread_fp).cpu()
-        want = scan_reference(*arrays, spread_fp)
-        assert torch.equal(got, want), (seed, int((got != want).sum()))
-        array_actions[seed] = {"placed": int((want >= 0).sum()),
-                               "wait": int((want[:n_tasks] == -1).sum()),
-                               "infeasible": int((want == -2).sum())}
+        array_actions[seed] = _kernel_case(seed, sched_scan_arrays(
+            seed, tb, nb, 8, n_tasks, n_nodes, local), spread)
+    seed, tb, nb, n_tasks, n_nodes, local, spread = SCHED_SIGNED_CASE
+    array_actions["signed"] = _kernel_case("signed", sched_signed_arrays(
+        seed, tb, nb, 8, n_tasks, n_nodes, local), spread)
+    # grants of negative demands gave availability back
+    assert array_actions["signed"]["placed_negative"] > 0, array_actions
+    seed, tb, nb, n_large, n_tasks, n_nodes, local, spread = SCHED_LATE_CASE
+    array_actions["late"] = _kernel_case("late", sched_late_arrays(
+        seed, tb, nb, 8, n_large, n_tasks, n_nodes, local), spread,
+        timed=True)
+    seed, tb, nb, n_tasks, n_nodes, local, spread = SCHED_GLOBAL_CASE
+    array_actions["global"] = _kernel_case("global", sched_scan_arrays(
+        seed, tb, nb, 8, n_tasks, n_nodes, local), spread, shared=False)
     seq_kernel, seq_cpu = CudaBatchedBackend(), CudaBatchedBackend("cpu")
 
     def check(tick, outs):
@@ -1386,32 +1530,59 @@ def phase_scheduler() -> dict:
                       if d.action in ("grant", "spill")}
             ticks.append({"pending": len(pending), "placed": len(placed),
                           "row_uploads": backend.num_row_uploads - uploads,
-                          "wall_ms": wall_ms})
+                          "wall_ms": wall_ms,
+                          "walk": walk_counters(sched_scan.last_walk)})
             pending = [r for r in pending if r.req_id not in placed]
     launches = sched_scan.launches
     assert launches == len(scans) == 1 + SCHED_WAVES, (launches, len(scans))
     assert backend.num_row_uploads == SCHED_TASKS, backend.num_row_uploads
-    assert all(t["placed"] > 0 for t in ticks), ticks
+    assert all(t["placed"] == t["walk"]["placements"] > 0
+               and t["walk"]["shared"] == 1 for t in ticks), ticks
     host_split = sched_host_split(first_pending, nodes)
 
     # every tick's scan against scan_reference on the same inputs
-    plain_s, max_err = [], 0
+    plain_s, max_err, refs = [], 0, []
     for (cpu_args, actions, _), tick in zip(scans, ticks):
         t0 = time.perf_counter()
         ref = scan_reference(*cpu_args)
         plain_s.append(time.perf_counter() - t0)
+        refs.append(ref)
         max_err = max(max_err, int((actions - ref).abs().max()))
         assert torch.equal(actions, ref), (
             tick, int((actions != ref).sum()))
     first_args, first_tasks = scans[0][2], ticks[0]["pending"]
     inc_args, inc_tasks = scans[1][2], ticks[1]["pending"]
-    # CUDA events bracket back-to-back launches of ~0.2 s each, so they
-    # time the device (a profiler window over this scan, late in the
-    # script, has recorded no device event on an H100)
-    first_ms = time_ms(lambda: sched_scan(*first_args), 3)
-    inc_ms = time_ms(lambda: sched_scan(*inc_args), 3)
-    bound_ms, bound_by, nbytes, kinds, real_nodes = sched_bound(
+    # the first tick's scan with every task placing: nothing to skip
+    dense_cpu = [torch.from_numpy(a) for a in sched_dense(
+        [x.numpy() for x in scans[0][0][:9]])] + [scans[0][0][9]]
+    dense_args = [x.to(DEVICE) for x in dense_cpu[:9]] + [dense_cpu[9]]
+    dense_ref = scan_reference(*dense_cpu)
+    assert int((dense_ref >= 0).sum()) == first_tasks, "dense: not all place"
+    for args, ref, name in ((first_args, refs[0], "first"),
+                            (inc_args, refs[1], "incremental"),
+                            (dense_args, dense_ref, "dense")):
+        got = sched_scan(*args).cpu()
+        assert torch.equal(got, ref), (name, int((got != ref).sum()))
+    # CUDA events bracket back-to-back launches of a few ms or more, so
+    # they time the device (a profiler window over this scan, late in the
+    # script, has recorded no device event on an H100); the walk kernel's
+    # own counts, of the last timed launch, split that time
+    first_ms = time_ms(lambda: sched_scan(*first_args), 10)
+    first_split = _walk_split(first_ms, walk_counters(sched_scan.last_walk))
+    inc_ms = time_ms(lambda: sched_scan(*inc_args), 10)
+    inc_split = _walk_split(inc_ms, walk_counters(sched_scan.last_walk))
+    dense_ms = time_ms(lambda: sched_scan(*dense_args), 3)
+    dense_walk = walk_counters(sched_scan.last_walk)
+    dense_split = _walk_split(dense_ms, dense_walk)
+    assert dense_walk["placements"] == first_tasks, dense_walk
+    first_walk = ticks[0]["walk"]
+    # the old bound reads every valid task's locality row; the output
+    # needs those of the positions ready on some node at their turn
+    bound_all_ms, _, nbytes_all, _, kinds, real_nodes = sched_bound(
         first_args, first_tasks)
+    rows = sched_ready_positions(scans[0][0], refs[0])
+    bound_ms, bound_by, nbytes, ops, _, _ = sched_bound(
+        first_args, first_tasks, rows)
     row = {"phase": "scheduler", "cases": len(sched_cases()),
            "sequence_ticks": 12, "quirks": quirks,
            "array_cases": array_actions,
@@ -1420,19 +1591,33 @@ def phase_scheduler() -> dict:
                       "resource_kinds": kinds, "spread": SCHED_SPREAD,
                       "t_bucket": first_args[3].shape[0],
                       "n_bucket": first_args[4].shape[0],
-                      "r_bucket": first_args[4].shape[1]},
+                      "r_bucket": first_args[4].shape[1],
+                      "chunk": cuda_batched.SCAN_CHUNK},
            "ticks": ticks, "launches": launches,
            "row_uploads": backend.num_row_uploads,
            "rebuilds": backend.num_rebuilds,
            "kernel_ms_first": first_ms, "kernel_ms_incremental": inc_ms,
            "us_per_task_first": first_ms * 1e3 / first_tasks,
            "us_per_task_incremental": inc_ms * 1e3 / inc_tasks,
+           "us_per_placement_first": first_ms * 1e3
+           / first_walk["placements"],
+           "walk_loop_us_per_placement_first": first_split["walk_loop_ms"]
+           * 1e3 / first_walk["placements"],
+           "split_first": first_split, "split_incremental": inc_split,
+           "dense_ms": dense_ms, "dense_us_per_task": dense_ms * 1e3
+           / first_tasks, "dense_split": dense_split,
+           "dense_walk": dense_walk,
            "tick_wall_ms_first": ticks[0]["wall_ms"],
            "tick_wall_ms_incremental": [t["wall_ms"] for t in ticks[1:]],
            "plain_ms": [x * 1e3 for x in plain_s],
-           "bound_bytes": nbytes, "bound_kinds": kinds,
-           "bound_nodes": real_nodes, "bound_ms": bound_ms,
-           "bound_by": bound_by, "host_split_first_tick": host_split,
+           "bound_bytes": nbytes, "bound_operations": ops,
+           "bound_rows": rows,
+           "bound_kinds": kinds, "bound_nodes": real_nodes,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_all_rows": bound_all_ms,
+           "bound_bytes_all_rows": nbytes_all,
+           "serial_chain": first_walk["placements"],
+           "host_split_first_tick": host_split,
            "host_tick_ms_10k": host_tick_ms, "config_gen_s": gen_s,
            "small_cases_s": small_s,
            "phase_s": time.perf_counter() - t_phase, "card": card_line()}
@@ -1441,9 +1626,12 @@ def phase_scheduler() -> dict:
             "replaces": "ray_tpu/_private/scheduler/tpu_batched.py:124",
             "replaces_kind": "XLA scan (lax.scan), not a Pallas kernel",
             "launches": launches, "max_abs_err": max_err, "ms": first_ms,
-            "incremental_ms": inc_ms,
+            "device_kernels": ["sched_prepass_kernel", "sched_walk_kernel"],
+            "incremental_ms": inc_ms, "dense_ms": dense_ms,
             "plain_ms": row["plain_ms"][0],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_all_rows": bound_all_ms,
+            "serial_chain": first_walk["placements"], "library_ms": None,
             "shape": [first_tasks, real_nodes, kinds]}
 
 

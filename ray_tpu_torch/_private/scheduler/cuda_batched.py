@@ -25,7 +25,11 @@ bucketed (powers of two) and growth rebuilds into a bigger bucket.
   the yardstick of the kernel on the card.
 * ``sched_scan`` is the kernel's wrapper: a CUDA tensor launches
   ``csrc/sched_scan.cu`` (or raises); a CPU tensor takes
-  ``scan_reference``. ``sched_scan.launches`` counts the launches.
+  ``scan_reference``. ``sched_scan.launches`` counts the launches, and
+  ``sched_scan.last_walk`` holds the last launch's walk counters on the
+  device (``walk_counters`` reads them). The kernel walks only the
+  positions that can still place (its source says how); its actions are
+  ``scan_reference``'s all the same.
 
 Decisions are those of the reference's JAX kernel, bit for bit,
 including where that kernel departs from the host oracle: with no local
@@ -163,15 +167,54 @@ def scan_reference(demands_s, locality_s, dep_ready_s, perm, totals,
 
 
 # sched_scan's C entry point (csrc/sched_scan.cu): nine input pointers,
-# two scratch and one output pointer, spread_fp, positions, n_bucket,
-# r_bucket, then the stream
-_SCAN_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+# six scratch pointers (scan-order demand rows, position headers, chunk
+# minima, chunk nonzero-demand flags, the global route's state, the walk
+# counters) and the actions, then spread_fp, positions, n_bucket,
+# r_bucket and the chunk, then the stream
+_SCAN_ARGS = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
               + [ctypes.c_void_p])
 _SCAN_DTYPES = (torch.float32, torch.int32, torch.bool, torch.int32,
                 torch.float32, torch.float32, torch.bool, torch.bool,
                 torch.bool)
 _SCAN_NAMES = ("demands", "locality", "dep_ready", "perm", "totals",
                "avail", "is_local", "valid_task", "valid_node")
+# The walk's exit test takes the minimum demand per kind over chunks of
+# SCAN_CHUNK positions (a power of two).
+SCAN_CHUNK = 128
+# What the walk counts, in its counters' order: valid positions scored,
+# the position it stopped at, placements, 1 where the state lived in
+# shared memory (0: global memory), and the walk kernel's own time by the
+# device's global timer: its set-up (state, suffix minima) and its loop,
+# in ns.
+WALK_COUNTERS = ("scored", "exit", "placements", "shared", "init_ns",
+                 "walk_ns")
+
+
+def _scan_scratch(positions: int, nb: int, rb: int, device) -> dict:
+    """The kernel's scratch in one allocation, each part 16-byte
+    aligned: scan-order demand rows [positions, rb], headers
+    [positions, 4] int32, chunk minima [n_chunks + 1, rb], nonzero-demand
+    flags [n_chunks, rb] int32, the global route's state [6, rb, nb] and
+    the walk counters int32."""
+    n_chunks = -(-positions // SCAN_CHUNK)
+    sizes = {"dem": positions * rb, "hdr": positions * 4,
+             "cmin": (n_chunks + 1) * rb, "cnz": n_chunks * rb,
+             "state": 6 * rb * nb, "stats": len(WALK_COUNTERS)}
+    buf = torch.empty(sum(-(-n // 4) * 4 for n in sizes.values()),
+                      dtype=torch.float32, device=device)
+    parts, off = {}, 0
+    for name, n in sizes.items():
+        parts[name] = buf.narrow(0, off, n)
+        off += -(-n // 4) * 4
+    for name in ("hdr", "cnz", "stats"):
+        parts[name] = parts[name].view(torch.int32)
+    return parts
+
+
+def walk_counters(stats: torch.Tensor) -> dict:
+    """A launch's walk counters (``sched_scan.last_walk``) by name; reading
+    them waits for the launch."""
+    return dict(zip(WALK_COUNTERS, stats.tolist()))
 
 
 @functools.cache
@@ -232,19 +275,21 @@ def _launch(device, *args) -> None:
 
 
 def _launch_sched_scan(ins, spread_fp: int) -> torch.Tensor:
-    """Launch the scan on the inputs' current stream; int32 actions."""
+    """Launch the scan on the inputs' current stream; int32 actions. The
+    walk's counters stay on the device as ``sched_scan.last_walk``."""
     _check_scan_inputs(ins)
     totals, perm = ins[4], ins[3]
     nb, rb = totals.shape
-    # scratch: the scan's running availability and 1 / totals
-    avail_work = torch.empty_like(totals)
-    inv_work = torch.empty_like(totals)
+    scratch = _scan_scratch(perm.shape[0], nb, rb, totals.device)
     actions = torch.empty(perm.shape, dtype=torch.int32,
                           device=totals.device)
     _launch(totals.device, *(x.data_ptr() for x in ins),
-            avail_work.data_ptr(), inv_work.data_ptr(), actions.data_ptr(),
-            int(spread_fp), perm.shape[0], nb, rb)
+            *(scratch[k].data_ptr() for k in ("dem", "hdr", "cmin", "cnz",
+                                               "state", "stats")),
+            actions.data_ptr(), int(spread_fp), perm.shape[0], nb, rb,
+            SCAN_CHUNK)
     sched_scan.launches += 1
+    sched_scan.last_walk = scratch["stats"]
     return actions
 
 
@@ -262,6 +307,7 @@ def sched_scan(demands_s, locality_s, dep_ready_s, perm, totals, avail0,
 
 
 sched_scan.launches = 0   # kernel launches since the last reset
+sched_scan.last_walk = None   # the last launch's walk counters (device)
 
 
 class _ResidentState:
